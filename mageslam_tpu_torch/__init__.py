@@ -6,9 +6,12 @@ kernels live in `csrc/` and are built with `nvcc` at first use
 (`ops/_build.py`); each has a plain PyTorch version beside it that serves
 CPU tensors only.
 
-This package never imports jax. Settings come from the JAX package's
-`config.py`, loaded by path (`_config.py`); JAX state crosses over through
-the JAX package's on-disk snapshot format (`interop.py`).
+This package never imports jax, nor anything of `mageslam_tpu`. It keeps
+its own copy of the settings (`config.py`) and of the benchmark's synthetic
+scene (`bench_world.py`); JAX state crosses over through the JAX package's
+on-disk snapshot format (`interop.py`). The entry points (`SlamSession`,
+`SlamSession.from_jax_snapshot`, `interop.load_jax_snapshot`) run on the
+card unless the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"
@@ -22,5 +25,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from ._config import MageSlamSettings, golden_path_settings  # noqa: E402,F401
+from .config import MageSlamSettings, golden_path_settings  # noqa: E402,F401
 from .runtime import FrameResult, SlamSession, TrackingState  # noqa: E402,F401

@@ -42,6 +42,16 @@ def leaf_names(cls) -> list[str]:
     return names
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device where torch sees no card
+    raises instead of carrying on elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but torch sees no CUDA "
+                           f"device; pass device='cpu' to run on the CPU")
+    return device
+
+
 def _to_tensor(name: str, arr: np.ndarray, device) -> torch.Tensor:
     if arr.dtype == np.uint32:
         if name.split(".")[0] not in DESCRIPTOR_FIELDS:
@@ -63,11 +73,13 @@ def _unflatten(cls, prefix: str, data, device):
                  else leaves[f] for f in cls._fields))
 
 
-def load_jax_snapshot(path: str, device="cpu"):
+def load_jax_snapshot(path: str, device="cuda"):
     """Read a snapshot written by the JAX package's save_session_snapshot.
     Returns (MapState, TrackingHistory, PoseHistory, meta dict) with tensors
-    on `device`. BoW (`bow*`) and RNG key (`key*`) leaves are ignored: the
-    bag-of-words index is not ported yet."""
+    on `device` (the card unless the caller asks for the CPU). BoW (`bow*`)
+    and RNG key (`key*`) leaves are ignored: the bag-of-words index is not
+    ported yet."""
+    device = resolve_device(device)
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     states = [_unflatten(cls, prefix, data, device) for prefix, cls in PREFIXES]

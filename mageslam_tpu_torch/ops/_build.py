@@ -68,8 +68,17 @@ def build() -> tuple[str, float, str]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(build()[0])
-    fn = lib.mageslam_hamming_matrix
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        # a, b, out, n, m, stream
+        "mageslam_hamming_matrix": [ptr] * 3 + [i32] * 2 + [ptr],
+        # q_desc, q_octave, q_valid, q_xy, radius, t_desc, t_xy, t_octave,
+        # t_valid, out_idx, out_dist, n_stages, n_query, n_target,
+        # octave_tol, max_hamming, min_diff, stream
+        "mageslam_radius_match": [ptr] * 11 + [i32] * 6 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -63,16 +63,17 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     _check(desc_a, "desc_a", device)
     _check(desc_b, "desc_b", device)
     n, m = desc_a.shape[0], desc_b.shape[0]
+    if device.index != torch.cuda.current_device():   # the launch's device
+        raise ValueError(f"hamming_matrix: tensors on {device}, current device "
+                         f"cuda:{torch.cuda.current_device()}")
     if (n + 31) // 32 > 65535:   # grid rows are 32 A rows each (gridDim.y)
         raise ValueError(f"hamming_matrix: {n} rows exceed the launch grid")
     out = torch.empty((n, m), dtype=torch.int32, device=device)
     if n == 0 or m == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mageslam_hamming_matrix(desc_a.data_ptr(), desc_b.data_ptr(),
-                                         out.data_ptr(), n, m, stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = _build.library().mageslam_hamming_matrix(
+        desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), n, m, stream)
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -1,21 +1,31 @@
 """Hamming-distance feature matching (port of mageslam_tpu/ops/matching.py).
 
-Every matcher is a dense masked computation on the (N, M) distance matrix
-from `hamming_matrix`, which launches the CUDA kernel for CUDA tensors
-(`ops/hamming.py`). The reference's bf16 bit-unpack matmul (`use_mxu=True`)
-gives the same exact integers, so the port has no `use_mxu`.
+- `radius_match_stages` / `radius_match`: the guided spatial match. CUDA
+  tensors launch the fused kernel `csrc/radius_match.cu` (masked best and
+  second-best per query and stage, no (Q, T) matrix in device memory); CPU
+  tensors take `radius_match_stages_plain`, the masked computation on the
+  (Q, T) matrix from `hamming_matrix_plain`. There is no fallback between
+  the two. `LAUNCHES` counts the fused kernel's launches.
+- `match_two_way`: mutual best match on the (N, M) matrix from
+  `hamming_matrix` (`ops/hamming.py`, the standalone CUDA kernel for CUDA
+  tensors).
 
-All matchers return, per query, the best target index (or -1).
+The reference's bf16 bit-unpack matmul (`use_mxu=True`) gives the same exact
+integers, so the port has no `use_mxu`. All matchers return, per query, the
+best target index (or -1).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .hamming import hamming_matrix  # noqa: F401  (re-exported)
+from . import _build
+from .hamming import WORDS, hamming_matrix, hamming_matrix_plain
 from .indexing import gather_clamped, scatter_drop
 
 BIG = 1 << 20
+MAX_STAGES = 4
+LAUNCHES = 0
 
 
 def _best_and_second(dist: torch.Tensor):
@@ -50,26 +60,130 @@ def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
     return torch.where(ok, fwd_idx, -1), torch.where(ok, fwd_best, -1)
 
 
+def candidate_mask(query_xy, query_octave, query_valid, target_xy, target_octave,
+                   target_valid, radius, octave_tol: int = 0) -> torch.Tensor:
+    """(S, Q, T) bool: the pairs that stage s may match, as the reference's
+    radius_match masks them (Chebyshev box, octave gate, validity)."""
+    same_oct = torch.abs(query_octave[:, None] - target_octave[None, :]) <= octave_tol
+    base = same_oct & query_valid[:, None] & target_valid[None, :]
+    r = radius[:, :, None]
+    dx = torch.abs(query_xy[:, :, None, 0] - target_xy[None, None, :, 0])
+    dy = torch.abs(query_xy[:, :, None, 1] - target_xy[None, None, :, 1])
+    return base[None] & (dx <= r) & (dy <= r)
+
+
+def radius_match_stages_plain(query_desc, query_xy, query_octave, query_valid,
+                              target_desc, target_xy, target_octave, target_valid,
+                              radius, max_hamming: int, min_diff: int,
+                              octave_tol: int = 0):
+    """`radius_match_stages` as tensor code on the (Q, T) distance matrix:
+    the reference's radius_match once per stage, sharing the distances."""
+    n_stages, n_query = radius.shape
+    if target_desc.shape[0] == 0:
+        none = torch.full((n_stages, n_query), -1, dtype=torch.int32,
+                          device=query_desc.device)
+        return none, none.clone()
+    d = hamming_matrix_plain(query_desc, target_desc)
+    cand = candidate_mask(query_xy, query_octave, query_valid, target_xy,
+                          target_octave, target_valid, radius, octave_tol)
+    idx, dist = [], []
+    for s in range(n_stages):
+        best_idx, best_val, second_val = _best_and_second(torch.where(cand[s], d, BIG))
+        ok = (best_val <= max_hamming) & ((second_val >= BIG)
+                                          | (second_val - best_val > min_diff))
+        idx.append(torch.where(ok, best_idx, -1))
+        dist.append(torch.where(ok, best_val, -1))
+    return torch.stack(idx), torch.stack(dist)
+
+
+def _check(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype,
+           shape: tuple[int, ...]) -> None:
+    if t.device != device:
+        raise ValueError(f"radius_match_stages: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"radius_match_stages: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"radius_match_stages: {name} must be {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"radius_match_stages: {name} must be contiguous")
+
+
+def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
+                        target_desc, target_xy, target_octave, target_valid,
+                        radius, max_hamming: int, min_diff: int, octave_tol: int = 0):
+    """Guided spatial match for S <= 4 stages over one distance computation.
+
+    query_desc (Q, 8) int32 words, query_octave (Q,) int32, query_valid (Q,)
+    bool; target_desc (T, 8), target_xy (T, 2) float32, target_octave (T,),
+    target_valid (T,); per stage s the query positions query_xy[s] (S, Q, 2)
+    float32 and radii radius[s] (S, Q) float32. Per stage and query: the
+    best target inside the Chebyshev box on the same octave (± octave_tol),
+    accepted when best <= max_hamming and second - best > min_diff.
+    Returns (S, Q) int32 (idx or -1, dist or -1)."""
+    tensors = (query_desc, query_xy, query_octave, query_valid, target_desc,
+               target_xy, target_octave, target_valid, radius)
+    if all(t.device.type == "cpu" for t in tensors):
+        return radius_match_stages_plain(*tensors, max_hamming, min_diff, octave_tol)
+    global LAUNCHES
+    device = query_desc.device
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(f"radius_match_stages: unsupported device {device} (the "
+                         f"current CUDA device is the launch's device)")
+    if radius.dim() != 2 or not 1 <= radius.shape[0] <= MAX_STAGES:
+        raise ValueError(f"radius_match_stages: radius must be (S, Q) with 1 <= S <= "
+                         f"{MAX_STAGES}, got {tuple(radius.shape)}")
+    (n_stages, n_query), n_target = radius.shape, target_desc.shape[0]
+    for t, name, dtype, shape in (
+            (query_desc, "query_desc", torch.int32, (n_query, WORDS)),
+            (query_xy, "query_xy", torch.float32, (n_stages, n_query, 2)),
+            (query_octave, "query_octave", torch.int32, (n_query,)),
+            (query_valid, "query_valid", torch.bool, (n_query,)),
+            (target_desc, "target_desc", torch.int32, (n_target, WORDS)),
+            (target_xy, "target_xy", torch.float32, (n_target, 2)),
+            (target_octave, "target_octave", torch.int32, (n_target,)),
+            (target_valid, "target_valid", torch.bool, (n_target,)),
+            (radius, "radius", torch.float32, (n_stages, n_query))):
+        _check(t, name, device, dtype, shape)
+    # staged with 16- and 8-byte cp.async
+    if target_desc.data_ptr() % 16 or target_xy.data_ptr() % 8:
+        raise ValueError("radius_match_stages: target_desc must be 16-byte and "
+                         "target_xy 8-byte aligned")
+    out_idx = torch.empty((n_stages, n_query), dtype=torch.int32, device=device)
+    out_dist = torch.empty((n_stages, n_query), dtype=torch.int32, device=device)
+    if n_query == 0:
+        return out_idx, out_dist
+    rc = _build.library().mageslam_radius_match(
+        *(t.data_ptr() for t in (query_desc, query_octave, query_valid, query_xy,
+                                 radius, target_desc, target_xy, target_octave,
+                                 target_valid, out_idx, out_dist)),
+        n_stages, n_query, n_target, int(octave_tol), int(max_hamming),
+        int(min_diff), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"radius_match kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out_idx, out_dist
+
+
 def radius_match(query_desc, query_xy, query_octave, query_valid,
                  target_desc, target_xy, target_octave, target_valid,
                  radius, max_hamming, min_diff, octave_tol: int = 0):
-    """Guided spatial match: per query, the best target inside the Chebyshev
-    `radius` box on the same octave (± octave_tol). Accepts best <=
-    max_hamming with second - best > min_diff. Returns (idx or -1, dist)."""
-    d = hamming_matrix(query_desc, target_desc)
-    radius = torch.as_tensor(radius, dtype=torch.float32,
-                             device=query_xy.device).expand(query_desc.shape[0])
-    dx = torch.abs(query_xy[:, None, 0] - target_xy[None, :, 0])
-    dy = torch.abs(query_xy[:, None, 1] - target_xy[None, :, 1])
-    in_box = (dx <= radius[:, None]) & (dy <= radius[:, None])
-    same_oct = torch.abs(query_octave[:, None] - target_octave[None, :]) <= octave_tol
-    cand = in_box & same_oct & query_valid[:, None] & target_valid[None, :]
-
-    d = torch.where(cand, d, BIG)
-    best_idx, best_val, second_val = _best_and_second(d)
-    ok = (best_val <= max_hamming) & ((second_val >= BIG)
-                                      | (second_val - best_val > min_diff))
-    return torch.where(ok, best_idx, -1), torch.where(ok, best_val, -1)
+    """Guided spatial match, one stage: per query, the best target inside
+    the Chebyshev `radius` box (a number or a (Q,) tensor) on the same
+    octave (± octave_tol). Accepts best <= max_hamming with second - best >
+    min_diff. Returns (idx or -1, dist or -1), each (Q,)."""
+    n_query = query_desc.shape[0]
+    if isinstance(radius, torch.Tensor):
+        radius = radius.to(device=query_xy.device, dtype=torch.float32)
+        radius = radius.expand(n_query).reshape(1, n_query).contiguous()
+    else:
+        radius = torch.full((1, n_query), float(radius), dtype=torch.float32,
+                            device=query_xy.device)
+    idx, dist = radius_match_stages(
+        query_desc, query_xy[None].contiguous(), query_octave, query_valid,
+        target_desc, target_xy, target_octave, target_valid, radius,
+        max_hamming, min_diff, octave_tol)
+    return idx[0], dist[0]
 
 
 def dedup_by_target(match_idx: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:

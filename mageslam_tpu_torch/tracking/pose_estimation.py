@@ -18,7 +18,7 @@ import torch
 from ..geometry.camera import project_undistorted
 from ..geometry.se3 import Pose, interpolate_pose
 from ..ops.indexing import scatter_drop, topk_stable
-from ..ops.matching import BIG, _best_and_second, dedup_by_target, hamming_matrix
+from ..ops.matching import BIG, dedup_by_target, radius_match_stages
 from .frame_state import TrackedFrame, TrackingHistory
 
 
@@ -68,7 +68,8 @@ def estimate_pose_with_prior(
 
     Candidates: every map point associated in any history frame (newest
     occurrence wins), refined >= min_refinement_count, in front of the
-    camera. One (budget, N) Hamming matrix serves all three stages."""
+    camera. One `radius_match_stages` call serves all three stages: on the
+    card one launch of the fused kernel, which computes each distance once."""
     H, N = history.assoc.shape
     P = mp_valid.shape[0]
     device = mp_pos.device
@@ -107,19 +108,21 @@ def estimate_pose_with_prior(
     a_safe_c = a_safe[sel]
     q_oct_c = q_oct[sel]
 
-    dmat = hamming_matrix(flat_desc[sel].contiguous(), frame.desc.contiguous())
-    same_oct = q_oct_c[:, None] == frame.kp_octave[None, :]
-    dmat = torch.where(cand_c[:, None] & same_oct & frame.kp_valid[None, :], dmat, BIG)
+    # the three stages' search boxes: the prior projection at the narrow and
+    # wider radii, the history keypoints' own positions at the widest. The
+    # radii are filled on the device: copying a host tensor would make the
+    # host wait for the stream.
+    radii = (search_radius, wider_search_radius, extra_wider_search_radius)
+    radius = torch.empty((3, Cb), dtype=torch.float32, device=device)
+    for s, r in enumerate(radii):
+        radius[s].fill_(r)
+    stage_idx, stage_dist = radius_match_stages(
+        flat_desc[sel].contiguous(), torch.stack([predicted_c, predicted_c, flat_xy_c]),
+        q_oct_c, cand_c, frame.desc.contiguous(), frame.kp_xy, frame.kp_octave,
+        frame.kp_valid, radius, max_hamming, min_hamming_diff, octave_tol=0)
 
-    def stage(q_xy, radius):
-        dx = torch.abs(q_xy[:, None, 0] - frame.kp_xy[None, :, 0])
-        dy = torch.abs(q_xy[:, None, 1] - frame.kp_xy[None, :, 1])
-        d = torch.where((dx <= radius) & (dy <= radius), dmat, BIG)
-        best_idx, best_val, second_val = _best_and_second(d)
-        m_ok = (best_val <= max_hamming) & (
-            (second_val >= BIG) | (second_val - best_val > min_hamming_diff))
-        idx = dedup_by_target(torch.where(m_ok, best_idx, -1),
-                              torch.where(m_ok, best_val, -1))
+    def stage(s):
+        idx = dedup_by_target(stage_idx[s], stage_dist[s])
         return idx, torch.sum((idx >= 0).to(torch.int32))
 
     denom = torch.clamp_min(n_candidates.to(torch.float32), 1.0)
@@ -131,11 +134,10 @@ def estimate_pose_with_prior(
     # The reference runs the wider stages behind lax.cond, only when the
     # narrower one came up short. Here all three always run and the result
     # is selected on the device: a host branch would wait on the device
-    # twice per frame, and a stage costs one masked pass over the shared
-    # (budget, N) matrix.
-    idx1, n1 = stage(predicted_c, search_radius)
-    idx2, n2 = stage(predicted_c, wider_search_radius)
-    idx3, n3 = stage(flat_xy_c, extra_wider_search_radius)
+    # twice per frame, and the kernel matches all three stages in one pass.
+    idx1, n1 = stage(0)
+    idx2, n2 = stage(1)
+    idx3, n3 = stage(2)
     ok1, ok2 = stage_ok(n1), stage_ok(n2)
     idx = torch.where(ok1, idx1, torch.where(ok2, idx2, idx3))
     count = torch.where(ok1, n1, torch.where(ok2, n2, n3))

@@ -119,11 +119,13 @@ def test_slice_tracks_like_jax(jax_run):
 
 
 def test_untracked_paths_fail_loudly():
-    sess = SlamSession(golden_path_settings(), (520.0, 520.0, 320.0, 240.0), 640, 480)
+    sess = SlamSession(golden_path_settings(), (520.0, 520.0, 320.0, 240.0), 640, 480,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="mono initialization"):
         sess.process_frame(np.zeros((480, 640), np.uint8), 0.0, 0)
     lost = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(),
-                                         (520.0, 520.0, 320.0, 240.0), 640, 480)
+                                         (520.0, 520.0, 320.0, 240.0), 640, 480,
+                                         device="cpu")
     blank = np.zeros((480, 640), np.uint8)
     states = [lost.process_frame(blank, 1.0 + k * 0.033, 100 + k).state for k in range(3)]
     assert states == [TrackingState.SKIPPED, TrackingState.SKIPPED,
@@ -137,13 +139,13 @@ def test_port_runs_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        "import numpy as np, bench, mageslam_tpu_torch as m\n"
+        "import mageslam_tpu_torch as m\n"
+        "from mageslam_tpu_torch import bench_world\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'mageslam_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
-        "pts, patches = bench.build_world(np.random.RandomState(7))\n"
-        "img = np.clip(bench.render(pts, patches, 31 * 0.033), 0, 255).astype(np.uint8)\n"
+        "img = bench_world.frames(31, 32)[0]\n"
         f"s = m.SlamSession.from_jax_snapshot({FIXTURE!r}, m.golden_path_settings(),\n"
-        "                                    (520., 520., 320., 240.), 640, 480)\n"
+        "                                    (520., 520., 320., 240.), 640, 480, 'cpu')\n"
         "print(s.process_frame(img, 31 * 0.033, 31).state.name)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
