@@ -17,7 +17,14 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      stages and (Q, T) up to (2048, 512) and (700, 3000), on low-entropy
      descriptors (ties at best and second), rows without candidates and
      points exactly on the radius; timed on the inputs the tracking path
-     gives it on frame 31 (no single PyTorch call computes it).
+     gives it on frame 31 (no single PyTorch call computes it);
+   - the fused two-way match kernel (`csrc/two_way_match.cu`) at B in {1, 5}
+     and (N, M) up to (512, 512) and (440, 700), on low-entropy descriptors
+     (ties in both directions), rows and columns without candidates and
+     min_diff in {1, 8}; timed on the inputs the first keyframe event gives
+     it, beside the two composites it replaces (per neighbour the standalone
+     Hamming kernel, or `torch._int_mm` of the ±1 bits, and the eager
+     epilogue; no single PyTorch call computes it).
    Each call is timed with CUDA events in turns (kernel, plain, plain,
    kernel), and each launch's device time is read from torch.profiler.
 4. Slice: starts a session on the card from the committed JAX state
@@ -25,9 +32,24 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    30), tracks frames 31-54 through `SlamSession.process_frame`, and holds
    every frame against the stored JAX outputs: state TRACKING, keyframe
    flag, pose R and t within 1e-3, tracked count within 3. In that run the
-   fused kernel must launch exactly twice a frame (cascade, track-local-map)
-   and the standalone Hamming kernel never. Then torch.profiler traces 8
+   fused kernel must launch exactly twice a frame (cascade, track-local-map),
+   plus the mapping step's launches on the window's one keyframe (its last
+   frame), and the standalone Hamming kernel never. Then torch.profiler traces 8
    frames for the device events and device time per frame.
+5. Mapping event: the first keyframe's mapping step (runtime/mapping_step.py)
+   on the card from the committed JAX state just before it
+   (tests/data/torch_port_bench640_map.npz), held against the JAX map after
+   it: `kf_valid`, `mp_valid`, `kf_assoc`, `kf_member` exact, `kf_pose`
+   within 1e-3 and `mp_pos` within 5e-3 (float32 LM with sums in another
+   order). Timed over repeats and traced once for its device events.
+6. Mapping window: a session from the frame-30 state runs frames 31-95
+   through `process_frame`, mapping the keyframes at 54, 68 and 93. Every
+   frame is held against the JAX session as in phase 4; the map after the
+   first event must equal the JAX map's masks exactly, and a later event's
+   differing mask entries are reported, not hidden. Per frame the launch
+   counts must be 2 fused radius-match launches without a keyframe, and on
+   a keyframe 8 radius-match (2 tracking, 1 loop-closure match, 5
+   re-association) and 1 two-way match; the standalone Hamming kernel never.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -47,6 +69,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
+MAP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
 CAM = (520.0, 520.0, 320.0, 240.0)
 WIDTH, HEIGHT = 640, 480
 DT = 0.033
@@ -54,7 +77,17 @@ KERNEL_SHAPES = ((1, 1), (129, 257), (1000, 440), (1024, 512), (2048, 512))
 PATH_SHAPES = ((1024, 512), (2048, 512))   # guided cascade, track-local-map
 RADIUS_SHAPES = ((1, 1), (129, 257), (1024, 512), (2048, 512), (700, 3000))
 RADIUS_STAGES = (1, 3)
+TWO_WAY_SHAPES = ((1, 1), (129, 257), (512, 512), (440, 700))
+TWO_WAY_BATCHES = (1, 5)
+TWO_WAY_MIN_DIFFS = (1, 8)
 POSE_ATOL = 1e-3
+MAP_POSE_ATOL = 1e-3      # kf_pose after a mapping event, against the JAX map
+MAP_POINT_ATOL = 5e-3     # mp_pos after a mapping event
+MAP_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
+MAP_REPEATS = 5
+# kernel launches of one frame: (radius_match, two_way_match, hamming)
+LAUNCHES_TRACKED = (2, 0, 0)
+LAUNCHES_KEYFRAME = (8, 1, 0)
 TRACKED_TOL = 3
 PROFILE_FRAMES = 8
 # NVIDIA H100 SXM data sheet (dense): HBM rate, int8 tensor-core rate (the
@@ -199,12 +232,14 @@ def profile(fn) -> list:
 
 def launch_us(fn, kernel_name: str, launches: int = 20) -> float | None:
     """Mean device time of one launch of `kernel_name`, over `launches`
-    calls of `fn` under the profiler; None where the trace has no device
-    time."""
-    events = [e for e in profile(lambda: [fn() for _ in range(launches)])
-              if kernel_name in e.name]
-    times = [_device_us(e) for e in events]
-    return sum(times) / len(times) if times and sum(times) > 0 else None
+    calls of `fn` under the profiler (a second trace if the first holds no
+    such event); None where the trace has no device time."""
+    for _ in range(2):
+        times = [_device_us(e) for e in profile(lambda: [fn() for _ in range(launches)])
+                 if kernel_name in e.name]
+        if times and sum(times) > 0:
+            return sum(times) / len(times)
+    return None
 
 
 def bound(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0) -> tuple[float, str]:
@@ -361,6 +396,330 @@ def time_radius_path(device, frame: np.ndarray, frame_id: int) -> dict:
             else "operations"}
 
 
+def two_way_case(rng: np.random.RandomState, n_batch: int, n_a: int, n_b: int,
+                 shared_a: bool) -> dict:
+    """numpy inputs of `match_two_way` that reach its edge cases: low-entropy
+    descriptors (ties at best and second in both directions), invalid rows
+    and columns, and one batch entry with no valid row at all."""
+    a_shape = (n_a, 8) if shared_a else (n_batch, n_a, 8)
+    valid_a = rng.rand(n_batch, n_a) < 0.8
+    valid_a[-1] = n_batch == 1      # the last entry of a real batch is empty
+    return {
+        "desc_a": LOW_ENTROPY_WORDS[rng.randint(0, 6, a_shape)].view(np.int32),
+        "valid_a": valid_a,
+        "desc_b": LOW_ENTROPY_WORDS[rng.randint(0, 6, (n_batch, n_b, 8))].view(np.int32),
+        "valid_b": rng.rand(n_batch, n_b) < 0.8,
+    }
+
+
+TWO_WAY_ARGS = ("desc_a", "valid_a", "desc_b", "valid_b")
+
+
+def check_two_way(device) -> int:
+    """The fused two-way kernel against its plain version, exact, at every
+    listed batch, shape and min_diff. Returns the max abs error (0)."""
+    from mageslam_tpu_torch.ops import matching
+
+    rng = np.random.RandomState(2)
+    for n_batch in TWO_WAY_BATCHES:
+        for n_a, n_b in TWO_WAY_SHAPES:
+            for min_diff in TWO_WAY_MIN_DIFFS:
+                shared = n_batch > 1 and min_diff == 8   # both layouts of desc_a
+                case = two_way_case(rng, n_batch, n_a, n_b, shared)
+                args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(device)
+                        for k in TWO_WAY_ARGS]
+                got = matching.match_two_way(*args, 6, min_diff)
+                want = matching.match_two_way_plain(*args, 6, min_diff)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if (g.shape != (n_batch, n_a) or g.dtype != torch.int32
+                            or not torch.equal(g, w)):
+                        raise AssertionError(f"two_way_match kernel != plain at B={n_batch}, "
+                                             f"({n_a}, {n_b}), min_diff={min_diff}")
+                d = torch.stack([matching.hamming_matrix_plain(
+                    args[0] if shared else args[0][b], args[2][b]) for b in range(n_batch)])
+                d = torch.where(args[1][:, :, None] & args[3][:, None, :] & (d <= 6), d, 1 << 20)
+                best_r, best_c = d.amin(2, keepdim=True), d.amin(1, keepdim=True)
+                phase("kernel", f"two_way_match B={n_batch} ({n_a}, {n_b}) min_diff={min_diff}"
+                                f"{' shared desc_a' if shared else ''}: equal to plain; "
+                                f"{int((got[0] >= 0).sum())} matched, rows tied at best "
+                                f"{int((((d == best_r) & (d < 1 << 20)).sum(2) > 1).sum())}, "
+                                f"columns tied at best "
+                                f"{int((((d == best_c) & (d < 1 << 20)).sum(1) > 1).sum())}, "
+                                f"rows without candidate {int((best_r >= 1 << 20).sum())}")
+    return 0
+
+
+def load_post_map(device, j: int):
+    """The JAX map after the map fixture's event j, as the port's MapState."""
+    from mageslam_tpu_torch import interop
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    with np.load(MAP_FIXTURE) as z:
+        data = {k: z[k] for k in z.files if k.startswith(f"ev{j}_post_map")}
+    return interop.unflatten(MapState, f"ev{j}_post_map", data, device)
+
+
+def load_event(device):
+    """(pre_map, pre_pose_history, frame, map_scale, post_map) of the map
+    fixture's first event as the port's states on `device`."""
+    from mageslam_tpu_torch import interop
+    from mageslam_tpu_torch.runtime.pose_history import PoseHistory
+    from mageslam_tpu_torch.tracking.frame_state import TrackedFrame
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    with np.load(MAP_FIXTURE) as z:
+        data = {k: z[k] for k in z.files if k.startswith("ev0_")}
+    return (interop.unflatten(MapState, "ev0_pre_map", data, device),
+            interop.unflatten(PoseHistory, "ev0_pre_ph", data, device),
+            interop.unflatten(TrackedFrame, "ev0_frame", data, device),
+            float(data["ev0_map_scale"]), load_post_map(device, 0))
+
+
+def map_event(pre):
+    """Map the fixture's first keyframe from `pre` (what `load_event` gives
+    for it). Returns (map, pose_history, slot)."""
+    from mageslam_tpu_torch import golden_path_settings
+    from mageslam_tpu_torch.runtime.mapping_step import mapping
+
+    pre_map, pre_ph, frame, map_scale, _ = pre
+    return mapping(golden_path_settings(), WIDTH, HEIGHT, pre_map, pre_ph, frame,
+                   map_scale, with_tethers=bool(torch.any(pre_map.tether_weight > 0)))
+
+
+def mask_diffs(got, want) -> dict:
+    """{mask: differing entries} over MAP_MASKS of two maps."""
+    return {f: int((getattr(got, f) != getattr(want, f)).sum()) for f in MAP_MASKS}
+
+
+def check_map_event(device, card: str) -> None:
+    """Phase 5: the first mapping event against the JAX map after it."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    pre = load_event(device)
+    post = pre[4]
+    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    new_map, _, ki = map_event(pre)
+    torch.cuda.synchronize()
+    launches = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+    with np.load(MAP_FIXTURE) as z:
+        want_ki = int(z["ev_ki"][0])
+    diffs = mask_diffs(new_map, post)
+    pose_err = max(float((new_map.kf_pose.R - post.kf_pose.R).abs().max()),
+                   float((new_map.kf_pose.t - post.kf_pose.t).abs().max()))
+    live = new_map.mp_valid
+    point_err = float((new_map.mp_pos - post.mp_pos)[live].abs().max())
+    if ki != want_ki or any(diffs.values()):
+        raise AssertionError(f"mapping event: slot {ki} (JAX {want_ki}), differing mask "
+                             f"entries {diffs}")
+    if not (pose_err <= MAP_POSE_ATOL and point_err <= MAP_POINT_ATOL):
+        raise AssertionError(f"mapping event: kf_pose err {pose_err:.3g} (limit "
+                             f"{MAP_POSE_ATOL}), mp_pos err {point_err:.3g} (limit "
+                             f"{MAP_POINT_ATOL})")
+    expected = tuple(k - t for k, t in zip(LAUNCHES_KEYFRAME, LAUNCHES_TRACKED))
+    if launches != expected:
+        raise AssertionError(f"mapping event launched (radius_match, two_way_match, "
+                             f"hamming) {launches}, expected {expected}")
+    phase("mapping", f"first keyframe event from the JAX state: slot {ki}, "
+                     f"{int(new_map.kf_valid.sum())} keyframes, {int(live.sum())} points; "
+                     f"{', '.join(MAP_MASKS)} equal to the JAX map; kf_pose err "
+                     f"{pose_err:.3g} (limit {MAP_POSE_ATOL}), mp_pos err {point_err:.3g} "
+                     f"(limit {MAP_POINT_ATOL}); launches radius_match {launches[0]}, "
+                     f"two_way_match {launches[1]}, hamming {launches[2]}")
+    ms = []
+    for _ in range(MAP_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        map_event(pre)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    phase("mapping", f"event wall time (mapping + synchronize): median "
+                     f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max {max(ms):.3f} "
+                     f"over {MAP_REPEATS} repeats; {card}")
+    events = profile(lambda: map_event(pre))
+    device_ms = sum(_device_us(e) for e in events) / 1e3
+    if not events or device_ms == 0:
+        phase("profile", "mapping event: the profiler recorded no device time: not measured")
+        return
+    ours = {n: [e for e in events if n in e.name]
+            for n in ("radius_match_kernel", "two_way_scan_kernel", "two_way_gate_kernel")}
+    phase("profile", f"mapping event: {len(events)} device events, {device_ms:.3f} ms of "
+                     f"device time; " + ", ".join(
+                         f"{n} {len(es)} launches, "
+                         f"{sum(_device_us(e) for e in es) / max(len(es), 1):.2f} us each"
+                         for n, es in ours.items()) + f"; {card}")
+
+
+def capture_two_way_call(device) -> dict:
+    """The arguments of the `match_two_way` call of the first keyframe
+    event."""
+    from mageslam_tpu_torch.worldmap import new_points
+
+    calls, real = [], new_points.match_two_way
+
+    def recording(*args):
+        calls.append([a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return real(*args)
+
+    new_points.match_two_way = recording
+    try:
+        map_event(load_event(device))
+    finally:
+        new_points.match_two_way = real
+    if len(calls) != 1:
+        raise AssertionError(f"expected one match_two_way call a keyframe, got {len(calls)}")
+    return calls[0]
+
+
+def time_two_way_path(device) -> dict:
+    """Times the fused two-way kernel on the first keyframe event's own
+    inputs: kernel and plain in turns, the two composites it replaces,
+    device time a launch and the bound."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff = capture_two_way_call(device)
+    n_batch, n_b = desc_b.shape[:2]
+    n_a = desc_a.shape[-2]
+    args = (desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff)
+    got = matching.match_two_way(*args)
+    want = matching.match_two_way_plain(*args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("two_way_match kernel != plain on the keyframe event's inputs")
+
+    def composite(distances):
+        return [matching.two_way_from_distances(distances(b), valid_a[b], valid_b[b],
+                                                max_hamming, min_diff)
+                for b in range(n_batch)]
+
+    a_of = (lambda b: desc_a) if desc_a.dim() == 2 else (lambda b: desc_a[b])
+    shifts = torch.arange(32, device=device, dtype=torch.int64)
+
+    def pm_bits(w):
+        return ((((w.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shifts) & 1)
+                .reshape(*w.shape[:-1], 256).to(torch.int8) * 2 - 1)
+
+    a_pm = [pm_bits(a_of(b)) for b in range(n_batch)]
+    b_pm_t = [pm_bits(desc_b[b]).t() for b in range(n_batch)]
+
+    def with_hamming_kernel():
+        return composite(lambda b: hamming.hamming_matrix(a_of(b), desc_b[b]))
+
+    def with_int_mm():
+        return composite(lambda b: (256 - torch._int_mm(a_pm[b], b_pm_t[b])) // 2)
+
+    for name, fn in (("hamming.cu", with_hamming_kernel), ("torch._int_mm", with_int_mm)):
+        out = fn()
+        if not all(torch.equal(torch.stack([o[i] for o in out]), got[i]) for i in (0, 1)):
+            raise AssertionError(f"the {name} composite != two_way_match kernel")
+    launches_before = hamming.LAUNCHES
+    t_kernel, t_plain, report = in_turns(lambda: matching.match_two_way(*args),
+                                         lambda: matching.match_two_way_plain(*args))
+    t_ham, t_mm = cuda_ms(with_hamming_kernel, iters=50), cuda_ms(with_int_mm, iters=50)
+    hamming.LAUNCHES = launches_before      # yardstick launches are not the path's
+    us_scan = launch_us(lambda: matching.match_two_way(*args), "two_way_scan_kernel")
+    us_gate = launch_us(lambda: matching.match_two_way(*args), "two_way_gate_kernel")
+    n_bytes = (desc_a.numel() * 4 + n_batch * n_b * 32 + n_batch * (n_a + n_b)
+               + 2 * n_batch * n_a * 4)
+    # the ±1 bit product, 256 multiply-adds, once for every pair of a valid
+    # row and a valid column (the others read BIG whatever their bits)
+    pairs = int((valid_a.sum(1) * valid_b.sum(1)).sum())
+    bound_ms, bound_by = bound(n_bytes, int8_ops=2 * 256 * pairs)
+    phase("kernel", f"two_way_match on the first keyframe event's call B={n_batch} "
+                    f"({n_a}, {n_b}), {int(valid_a.sum())} valid rows, {int(valid_b.sum())} "
+                    f"valid columns, {int((got[0] >= 0).sum())} matched: {report}; composite "
+                    f"of {n_batch} x (hamming.cu + eager epilogue) {t_ham:.5f} ms, of "
+                    f"{n_batch} x (torch._int_mm + eager epilogue) {t_mm:.5f} ms (median of "
+                    f"5 x 50 calls); device {us_scan} us (scan) + {us_gate} us (gate) a call "
+                    f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}; {pairs} valid "
+                    f"pairs)")
+    return {"shape": [n_batch, n_a, n_b], "valid_pairs": pairs, "ms": t_kernel, "plain_ms": t_plain,
+            "composite_hamming_kernel_ms": t_ham, "composite_int_mm_ms": t_mm,
+            "device_us_scan": us_scan, "device_us_gate": us_gate, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def run_map_window(device, frames, first_id: int):
+    """A session from the frame-30 state over `frames`, keyframes mapped.
+    Returns (results, per-frame ms, per-frame launch counts (radius_match,
+    two_way_match, hamming), the mapping events' ms, the map after each
+    event)."""
+    from mageslam_tpu_torch import SlamSession, golden_path_settings
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM,
+                                         WIDTH, HEIGHT, device)
+    map_ms, maps = [], []
+    inner = sess._insert_keyframe_and_map
+
+    def timed(frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(frame)
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - t0) * 1e3)
+        maps.append(sess.map)
+
+    sess._insert_keyframe_and_map = timed
+    results, ms, launches = [], [], []
+    for j, img in enumerate(frames):
+        i = first_id + j
+        before = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+        t0 = time.perf_counter()
+        results.append(sess.process_frame(img, i * DT, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+        launches.append(tuple(a - b for a, b in zip(after, before)))
+    return results, ms, launches, map_ms, maps
+
+
+def check_map_window(device, card: str) -> dict:
+    """Phase 6. Returns the launch counts of the run, by kernel."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    with np.load(MAP_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files if k.startswith(("ref_", "ev_"))}
+    first = int(ref["ref_frame_id"][0])
+    frames = render_window(first, first + len(ref["ref_frame_id"]))
+    run_map_window(device, frames, first)      # warm pass
+    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    results, ms, launches, map_ms, maps = run_map_window(device, frames, first)
+    totals = {"radius_match": matching.LAUNCHES, "two_way_match": matching.TWO_WAY_LAUNCHES,
+              "hamming_matrix": hamming.LAUNCHES}
+    pose_err, count_err = check_window(results, ref)
+    kf = [r.frame_id for r in results if r.is_keyframe]
+    if kf != ref["ev_frame_id"].tolist() or len(kf) < 3:
+        raise AssertionError(f"keyframes mapped at {kf}, the JAX session's at "
+                             f"{ref['ev_frame_id'].tolist()}")
+    for r, got in zip(results, launches):
+        want = LAUNCHES_KEYFRAME if r.is_keyframe else LAUNCHES_TRACKED
+        if got != want:
+            raise AssertionError(f"frame {r.frame_id} (keyframe: {r.is_keyframe}) launched "
+                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{want}")
+    for j, got in enumerate(maps):
+        diffs = mask_diffs(got, load_post_map(device, j))
+        if j == 0 and any(diffs.values()):
+            raise AssertionError(f"the map after the first event (frame {kf[0]}) differs "
+                                 f"from the JAX map: {diffs}")
+        phase("window", f"map after event {j} (frame {kf[j]}): differing mask entries "
+                        f"against the JAX map {diffs}")
+    tracked_ms = [t for t, r in zip(ms, results) if not r.is_keyframe]
+    phase("window", f"frames {first}-{first + len(frames) - 1}: all TRACKING, keyframes "
+                    f"mapped at {kf} as in the JAX session, max pose err {pose_err:.3g} "
+                    f"(limit {POSE_ATOL}), max tracked diff {count_err} (limit {TRACKED_TOL})")
+    phase("window", f"kernel launches: {LAUNCHES_TRACKED} a tracked frame and "
+                    f"{LAUNCHES_KEYFRAME} a keyframe frame (radius_match, two_way_match, "
+                    f"hamming), asserted on every frame; totals {totals}")
+    phase("window", f"tracked frame (process_frame + synchronize): median "
+                    f"{statistics.median(tracked_ms):.3f} ms, min {min(tracked_ms):.3f}, max "
+                    f"{max(tracked_ms):.3f} over {len(tracked_ms)} frames; mapping event "
+                    f"(inside its keyframe's process_frame): median "
+                    f"{statistics.median(map_ms):.3f} ms, min {min(map_ms):.3f}, max "
+                    f"{max(map_ms):.3f} over {len(map_ms)} events; after one warm pass; {card}")
+    return totals
+
+
 def render_window(start: int, stop: int) -> list[np.ndarray]:
     """The benchmark world's frames start..stop-1, clipped and cast to
     uint8 (the port's own copy of the scene, mageslam_tpu_torch/bench_world.py)."""
@@ -455,6 +814,7 @@ def main() -> int:
 
     ham = check_hamming(device)
     fused_err = check_radius_match(device)
+    two_way_err = check_two_way(device)
 
     with np.load(FIXTURE) as z:
         ref = {k: z[k] for k in z.files if k.startswith("ref_")}
@@ -462,43 +822,68 @@ def main() -> int:
     frames = render_window(first, first + len(ref["ref_frame_id"]))
     fused = time_radius_path(device, frames[0], first)
 
+    two_way = time_two_way_path(device)
+
     run_window(device, frames, first)          # warm pass: allocator, caches
-    hamming.LAUNCHES = matching.LAUNCHES = 0
+    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
     results, ms = run_window(device, frames, first)
     fused_launches, ham_launches = matching.LAUNCHES, hamming.LAUNCHES
     pose_err, count_err = check_window(results, ref)
-    if fused_launches != 2 * len(frames) or ham_launches != 0:
-        raise AssertionError(f"over {len(frames)} frames: radius_match kernel launched "
-                             f"{fused_launches} times (expected 2 a frame), hamming "
-                             f"kernel {ham_launches} times (expected 0)")
     kf = [r.frame_id for r in results if r.is_keyframe]
+    extra = LAUNCHES_KEYFRAME[0] - LAUNCHES_TRACKED[0]      # a mapped keyframe's own
+    if (fused_launches != LAUNCHES_TRACKED[0] * len(frames) + extra * len(kf)
+            or matching.TWO_WAY_LAUNCHES != len(kf) or ham_launches != 0):
+        raise AssertionError(f"over {len(frames)} frames with {len(kf)} keyframes mapped: "
+                             f"radius_match kernel launched {fused_launches} times (expected "
+                             f"{LAUNCHES_TRACKED[0]} a frame and {extra} more a keyframe), "
+                             f"two_way_match {matching.TWO_WAY_LAUNCHES} (expected 1 a "
+                             f"keyframe), hamming kernel {ham_launches} times (expected 0)")
     phase("slice", f"frames {first}-{first + len(frames) - 1}: all TRACKING, "
                    f"keyframes at {kf}, max pose err {pose_err:.3g} (limit "
                    f"{POSE_ATOL}), max tracked diff {count_err} (limit {TRACKED_TOL})")
     phase("slice", f"kernel launches in the run: radius_match {fused_launches} "
-                   f"({fused_launches / len(frames):.1f} a frame), hamming {ham_launches}")
+                   f"({LAUNCHES_TRACKED[0]} a frame, {extra} more on each of {len(kf)} "
+                   f"mapped keyframes), hamming {ham_launches}")
     phase("slice", f"per-frame wall time (process_frame + synchronize): median "
                    f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max "
                    f"{max(ms):.3f} over {len(ms)} frames after one warm pass; {card}")
     profile_window(device, frames, first, card)
+
+    check_map_event(device, card)
+    map_launches = check_map_window(device, card)
 
     ham_row = ham["rows"][PATH_SHAPES[-1]]
     print(json.dumps({"kernels": [
         {"name": "radius_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/radius_match.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
-         "launches": fused_launches, "max_abs_err": fused_err,
+         "launches": fused_launches + map_launches["radius_match"],
+         "launches_by_path": {"frames_31_54": fused_launches,
+                              "frames_31_95_mapped": map_launches["radius_match"]},
+         "max_abs_err": fused_err,
          "ms": fused["ms"], "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
          "bound_by": fused["bound_by"], "library_ms": None,
          "note": "ms, plain_ms, bound_ms: sum of one frame's two calls", "calls": fused["calls"]},
         {"name": "hamming_matrix", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/hamming.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
-         "launches": ham_launches, "max_abs_err": ham["max_abs_err"],
+         "launches": ham_launches + map_launches["hamming_matrix"],
+         "max_abs_err": ham["max_abs_err"],
          "ms": ham_row["ms"], "plain_ms": ham_row["plain_ms"],
          "bound_ms": ham_row["bound_ms"], "bound_by": ham_row["bound_by"],
          "library_ms": ham_row["library_ms"], "shape": list(PATH_SHAPES[-1]),
          "rows": {f"{n}x{m}": r for (n, m), r in ham["rows"].items()}},
+        {"name": "two_way_match", "route": "cuda",
+         "source": "mageslam_tpu_torch/csrc/two_way_match.cu",
+         "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
+         "launches": map_launches["two_way_match"], "max_abs_err": two_way_err,
+         "ms": two_way["ms"], "plain_ms": two_way["plain_ms"],
+         "bound_ms": two_way["bound_ms"], "bound_by": two_way["bound_by"],
+         "library_ms": None,
+         "note": "no single PyTorch call computes it; the composites it replaces are timed",
+         **{k: two_way[k] for k in ("shape", "composite_hamming_kernel_ms",
+                                    "composite_int_mm_ms", "valid_pairs", "device_us_scan",
+                                    "device_us_gate")}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -32,6 +32,10 @@ class Pose(NamedTuple):
         t = torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
         return Pose(R, t)
 
+    def inverse(self) -> "Pose":
+        Rt = self.R.transpose(-1, -2)
+        return Pose(Rt, -torch.einsum("...ij,...j->...i", Rt, self.t))
+
     def compose(self, other: "Pose") -> "Pose":
         """self ∘ other: apply `other` first, then `self`."""
         return Pose(
@@ -136,6 +140,13 @@ def exp_se3(twist: torch.Tensor) -> Pose:
     R = exp_so3(phi)
     t = torch.einsum("...ij,...j->...i", _so3_left_jacobian(phi), rho)
     return Pose(R, t)
+
+
+def log_se3(pose: Pose) -> torch.Tensor:
+    """SE(3) logarithm: twist [rho(3), phi(3)] of a pose."""
+    phi = log_so3(pose.R)
+    rho = torch.linalg.solve(_so3_left_jacobian(phi), pose.t[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
 
 
 def retract(pose: Pose, twist: torch.Tensor) -> Pose:

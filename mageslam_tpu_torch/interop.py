@@ -3,7 +3,8 @@
 `mageslam_tpu.io.snapshot.save_session_snapshot` writes one `.npz` with the
 leaves of `MapState`, `TrackingHistory` and `PoseHistory` under `map{i}`,
 `hist{i}` and `ph{i}` (NamedTuple declaration order, a `Pose` flattened as
-R then t) and the host counters as JSON in `meta_json`. The leaf-to-field
+R then t; any of the port's state tuples, `BAProblem` and `BAState` too,
+crosses the same way through `unflatten` and `to_numpy`) and the host counters as JSON in `meta_json`. The leaf-to-field
 map here comes from the port's own field lists, which keep the reference's
 order. Descriptor words cross as int32 tensors with the same bits as the
 reference's uint32; `to_numpy` turns them back.
@@ -32,12 +33,21 @@ def _pose_fields(cls) -> set[str]:
     return {name for name, ann in typing.get_type_hints(cls).items() if ann is Pose}
 
 
+def _tensor_fields(cls) -> list[str]:
+    """The fields that hold tensors or poses. A field annotated as a plain
+    Python value (BAProblem.points_fixed) is structure, not a leaf: the
+    reference flattens it as a leaf too, last, and callers carry it over
+    themselves."""
+    hints = typing.get_type_hints(cls)
+    return [f for f in cls._fields if hints[f] in (torch.Tensor, Pose)]
+
+
 def leaf_names(cls) -> list[str]:
     """Leaf names of a state NamedTuple in flatten order; a Pose field
     `f` contributes `f.R` and `f.t`."""
     poses = _pose_fields(cls)
     names = []
-    for f in cls._fields:
+    for f in _tensor_fields(cls):
         names.extend([f"{f}.R", f"{f}.t"] if f in poses else [f])
     return names
 
@@ -62,15 +72,17 @@ def _to_tensor(name: str, arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)   # copy keeps 0-d leaves 0-d
 
 
-def _unflatten(cls, prefix: str, data, device):
+def unflatten(cls, prefix: str, data, device):
+    """The state NamedTuple `cls` from the leaves `{prefix}{i}` of `data`, in
+    flatten order, as tensors on `device`."""
     names = leaf_names(cls)
     if f"{prefix}{len(names)}" in data or f"{prefix}{len(names) - 1}" not in data:
         raise ValueError(f"snapshot '{prefix}*' leaves do not match {cls.__name__}")
     leaves = {n: _to_tensor(n, data[f"{prefix}{i}"], device)
               for i, n in enumerate(names)}
     poses = _pose_fields(cls)
-    return cls(*(Pose(leaves[f"{f}.R"], leaves[f"{f}.t"]) if f in poses
-                 else leaves[f] for f in cls._fields))
+    return cls(**{f: Pose(leaves[f"{f}.R"], leaves[f"{f}.t"]) if f in poses
+                  else leaves[f] for f in _tensor_fields(cls)})
 
 
 def load_jax_snapshot(path: str, device="cuda"):
@@ -82,7 +94,7 @@ def load_jax_snapshot(path: str, device="cuda"):
     device = resolve_device(device)
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
-    states = [_unflatten(cls, prefix, data, device) for prefix, cls in PREFIXES]
+    states = [unflatten(cls, prefix, data, device) for prefix, cls in PREFIXES]
     meta = json.loads(bytes(data["meta_json"]).decode())
     return (*states, meta)
 
@@ -92,7 +104,7 @@ def to_numpy(state) -> dict[str, np.ndarray]:
     descriptor fields back as uint32 views."""
     poses = _pose_fields(type(state))
     out = {}
-    for f in type(state)._fields:
+    for f in _tensor_fields(type(state)):
         value = getattr(state, f)
         parts = ({f"{f}.R": value.R, f"{f}.t": value.t} if f in poses
                  else {f: value})

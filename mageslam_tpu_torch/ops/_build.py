@@ -68,7 +68,7 @@ def build() -> tuple[str, float, str]:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(build()[0])
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         # a, b, out, n, m, stream
         "mageslam_hamming_matrix": [ptr] * 3 + [i32] * 2 + [ptr],
@@ -76,6 +76,9 @@ def library() -> ctypes.CDLL:
         # t_valid, out_idx, out_dist, n_stages, n_query, n_target,
         # octave_tol, max_hamming, min_diff, stream
         "mageslam_radius_match": [ptr] * 11 + [i32] * 6 + [ptr],
+        # desc_a, valid_a, desc_b, valid_b, scratch, out_idx, out_dist,
+        # a_stride, n_batch, n_a, n_b, max_hamming, min_diff, stream
+        "mageslam_two_way_match": [ptr] * 7 + [i64] + [i32] * 5 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -8,6 +8,17 @@
   banks: JAX drops out-of-range writes, torch raises on them. Out-of-range
   indices are sent to a sink slot past the end, which is then cut off, so
   the scatter never needs a host sync to filter them.
+- `set_drop` / `add_drop` are `x.at[idx].set(v, mode="drop")` and
+  `.add(v, mode="drop")` over the rows of a bank of any rank, with the same
+  sink slot. Every caller masks a write by sending it past the end, never
+  by a negative index, so a negative index is dropped too. `set_drop` with
+  equal in-range indices has no defined winner on CUDA: callers pass
+  distinct ones. `add_drop` sums float32 duplicates in no fixed order on
+  CUDA (atomics), so sums agree to rounding only.
+- `pair_index` turns (row, column) pairs into indices of the flattened
+  (rows x columns) bank, -1 (dropped) where either is out of range, for the
+  reference's two-index scatters.
+- `any_drop` is `zeros(n, bool).at[idx].max(flag, mode="drop")`.
 """
 
 from __future__ import annotations
@@ -41,3 +52,43 @@ def scatter_drop(bank: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
 def gather_clamped(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`bank[idx]` with indices clamped into range, as a JAX gather does."""
     return bank[torch.clamp(idx, 0, bank.shape[0] - 1)]
+
+
+def _sink(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.where((idx >= 0) & (idx < n), idx, n).to(torch.int64)
+
+
+def set_drop(bank: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """`bank` with row idx[i] set to value[i] (or a scalar); indices outside
+    [0, len(bank)) are dropped."""
+    n = bank.shape[0]
+    value = torch.as_tensor(value, dtype=bank.dtype, device=bank.device)
+    padded = torch.cat([bank, bank.new_zeros((1,) + bank.shape[1:])])
+    padded.index_put_((_sink(idx, n),), value)
+    return padded[:n]
+
+
+def add_drop(bank: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """`bank` with value[i] added to row idx[i]; indices outside
+    [0, len(bank)) are dropped."""
+    n = bank.shape[0]
+    value = torch.as_tensor(value, dtype=bank.dtype, device=bank.device)
+    padded = torch.cat([bank, bank.new_zeros((1,) + bank.shape[1:])])
+    padded.index_put_((_sink(idx, n),), value.expand(idx.shape + bank.shape[1:]),
+                      accumulate=True)
+    return padded[:n]
+
+
+def pair_index(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
+               n_cols: int) -> torch.Tensor:
+    """Flat index rows * n_cols + cols, -1 where a row or column is out of
+    range."""
+    ok = (rows >= 0) & (rows < n_rows) & (cols >= 0) & (cols < n_cols)
+    return torch.where(ok, rows.to(torch.int64) * n_cols + cols.to(torch.int64), -1)
+
+
+def any_drop(n: int, idx: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: true where some in-range idx[i] with flag[i] points."""
+    hits = scatter_drop(torch.zeros((n,), dtype=torch.int32, device=idx.device),
+                        idx, flag.to(torch.int32), "max")
+    return hits > 0

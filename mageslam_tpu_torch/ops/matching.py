@@ -6,9 +6,12 @@
   tensors take `radius_match_stages_plain`, the masked computation on the
   (Q, T) matrix from `hamming_matrix_plain`. There is no fallback between
   the two. `LAUNCHES` counts the fused kernel's launches.
-- `match_two_way`: mutual best match on the (N, M) matrix from
-  `hamming_matrix` (`ops/hamming.py`, the standalone CUDA kernel for CUDA
-  tensors).
+- `match_two_way`: the mutual best match, batched. CUDA tensors launch the
+  fused kernel `csrc/two_way_match.cu` once for the whole batch (both
+  directions scanned, no (N, M) matrix in device memory); CPU tensors take
+  `match_two_way_plain`, the same gates on the (N, M) matrix from
+  `hamming_matrix_plain`. `TWO_WAY_LAUNCHES` counts the wrapper's launches
+  of the kernel (one per call: the scan and its gate pass together).
 
 The reference's bf16 bit-unpack matmul (`use_mxu=True`) gives the same exact
 integers, so the port has no `use_mxu`. All matchers return, per query, the
@@ -20,12 +23,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .hamming import WORDS, hamming_matrix, hamming_matrix_plain
+from .hamming import WORDS, hamming_matrix_plain
 from .indexing import gather_clamped, scatter_drop
 
 BIG = 1 << 20
 MAX_STAGES = 4
 LAUNCHES = 0
+TWO_WAY_LAUNCHES = 0
 
 
 def _best_and_second(dist: torch.Tensor):
@@ -38,11 +42,10 @@ def _best_and_second(dist: torch.Tensor):
     return best_idx.to(torch.int32), best_val, second_val
 
 
-def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
-                  min_diff: int):
-    """Mutual-best match with the max-distance and best/second-best gates.
-    Returns (match_b_idx (N,), dist (N,)), -1 for no match."""
-    d = hamming_matrix(desc_a, desc_b)
+def two_way_from_distances(d, valid_a, valid_b, max_hamming: int, min_diff: int):
+    """The two-way match's gates on an (N, M) int32 distance matrix:
+    (match_b_idx (N,), dist (N,)), -1 for no match."""
+    n = d.shape[0]
     d = torch.where(valid_a[:, None] & valid_b[None, :], d, BIG)
     d_thr = torch.where(d <= max_hamming, d, BIG)
 
@@ -54,10 +57,103 @@ def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
     bwd_ok = (bwd_best < BIG) & ((bwd_second >= BIG)
                                  | (bwd_second - bwd_best >= min_diff))
     fi = fwd_idx.to(torch.int64)
-    mutual = bwd_idx[fi] == torch.arange(desc_a.shape[0], dtype=torch.int32,
-                                         device=desc_a.device)
+    mutual = bwd_idx[fi] == torch.arange(n, dtype=torch.int32, device=d.device)
     ok = fwd_ok & bwd_ok[fi] & mutual
     return torch.where(ok, fwd_idx, -1), torch.where(ok, fwd_best, -1)
+
+
+def _match_two_way_single(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
+                          min_diff: int):
+    n, m = desc_a.shape[0], desc_b.shape[0]
+    if n == 0 or m == 0:
+        none = torch.full((n,), -1, dtype=torch.int32, device=desc_a.device)
+        return none, none.clone()
+    return two_way_from_distances(hamming_matrix_plain(desc_a, desc_b), valid_a,
+                                  valid_b, max_hamming, min_diff)
+
+
+def match_two_way_plain(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
+                        min_diff: int):
+    """`match_two_way` as tensor code on the (N, M) distance matrix from
+    `hamming_matrix_plain`, one batch entry at a time."""
+    if desc_b.dim() == 2:
+        return _match_two_way_single(desc_a, valid_a, desc_b, valid_b,
+                                     max_hamming, min_diff)
+    pairs = [_match_two_way_single(desc_a if desc_a.dim() == 2 else desc_a[b],
+                                   valid_a[b], desc_b[b], valid_b[b],
+                                   max_hamming, min_diff)
+             for b in range(desc_b.shape[0])]
+    shape = (desc_b.shape[0], desc_a.shape[-2])
+    if not pairs:
+        none = torch.full(shape, -1, dtype=torch.int32, device=desc_a.device)
+        return none, none.clone()
+    return (torch.stack([p[0] for p in pairs]).reshape(shape),
+            torch.stack([p[1] for p in pairs]).reshape(shape))
+
+
+def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
+                  min_diff: int):
+    """Mutual-best match with the max-distance and best/second-best gates.
+
+    Unbatched: desc_a (N, 8) int32 words, valid_a (N,) bool, desc_b (M, 8),
+    valid_b (M,); returns (match_b_idx (N,), dist (N,)) int32, -1 for no
+    match. Batched: desc_b (B, M, 8), valid_b (B, M), valid_a (B, N) and
+    desc_a (B, N, 8) or one (N, 8) bank shared by all entries; returns (B, N).
+
+    Distances above max_hamming or on an invalid row or column count as BIG.
+    A side passes when best < BIG and (second >= BIG or second - best >=
+    min_diff); a row is matched when its side passes, its best column's side
+    passes, and that column's best row is this row. The first minimum wins a
+    tie in both directions.
+
+    CUDA tensors launch `csrc/two_way_match.cu` once for the whole batch
+    (no (N, M) matrix in device memory); CPU tensors take
+    `match_two_way_plain`."""
+    tensors = (desc_a, valid_a, desc_b, valid_b)
+    if all(t.device.type == "cpu" for t in tensors):
+        return match_two_way_plain(*tensors, max_hamming, min_diff)
+    global TWO_WAY_LAUNCHES
+    device = desc_a.device
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(f"match_two_way: unsupported device {device} (the "
+                         f"current CUDA device is the launch's device)")
+    batched = desc_b.dim() == 3
+    if not batched:
+        desc_b, valid_b, valid_a = desc_b[None], valid_b[None], valid_a[None]
+    if desc_b.dim() != 3 or desc_a.dim() not in (2, 3):
+        raise ValueError(f"match_two_way: desc_a {tuple(desc_a.shape)} and desc_b "
+                         f"{tuple(desc_b.shape)} are not (N, 8) / (B, N, 8) and (B, M, 8)")
+    n_batch, n_b = desc_b.shape[:2]
+    n_a = desc_a.shape[-2]
+    shared_a = desc_a.dim() == 2
+    for t, name, dtype, shape in (
+            (desc_a, "desc_a", torch.int32,
+             (n_a, WORDS) if shared_a else (n_batch, n_a, WORDS)),
+            (valid_a, "valid_a", torch.bool, (n_batch, n_a)),
+            (desc_b, "desc_b", torch.int32, (n_batch, n_b, WORDS)),
+            (valid_b, "valid_b", torch.bool, (n_batch, n_b))):
+        _check(t, name, device, dtype, shape, "match_two_way")
+    if desc_a.data_ptr() % 16 or desc_b.data_ptr() % 16:   # staged with 16-byte cp.async
+        raise ValueError("match_two_way: descriptors must be 16-byte aligned")
+    if n_batch > 65535:   # gridDim.y
+        raise ValueError(f"match_two_way: batch {n_batch} exceeds the launch grid")
+    out_idx = torch.empty((n_batch, n_a), dtype=torch.int32, device=device)
+    out_dist = torch.empty((n_batch, n_a), dtype=torch.int32, device=device)
+    if n_batch == 0 or n_a == 0 or n_b == 0:   # nothing to launch: no match
+        out_idx.fill_(-1)
+        out_dist.fill_(-1)
+    else:
+        scratch = torch.empty((n_batch, n_a + n_b, 4), dtype=torch.int32, device=device)
+        rc = _build.library().mageslam_two_way_match(
+            desc_a.data_ptr(), valid_a.data_ptr(), desc_b.data_ptr(),
+            valid_b.data_ptr(), scratch.data_ptr(), out_idx.data_ptr(),
+            out_dist.data_ptr(), 0 if shared_a else n_a, n_batch, n_a, n_b,
+            int(max_hamming), int(min_diff),
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"two_way_match kernel launch failed: cudaError {rc}")
+        TWO_WAY_LAUNCHES += 1
+    return (out_idx, out_dist) if batched else (out_idx[0], out_dist[0])
 
 
 def candidate_mask(query_xy, query_octave, query_valid, target_xy, target_octave,
@@ -97,16 +193,15 @@ def radius_match_stages_plain(query_desc, query_xy, query_octave, query_valid,
 
 
 def _check(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype,
-           shape: tuple[int, ...]) -> None:
+           shape: tuple[int, ...], fn: str = "radius_match_stages") -> None:
     if t.device != device:
-        raise ValueError(f"radius_match_stages: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"radius_match_stages: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"radius_match_stages: {name} must be {shape}, got "
-                         f"{tuple(t.shape)}")
+        raise ValueError(f"{fn}: {name} must be {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"radius_match_stages: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def radius_match_stages(query_desc, query_xy, query_octave, query_valid,

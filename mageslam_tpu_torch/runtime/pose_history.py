@@ -8,8 +8,10 @@ parameterization in world space:
   off_q = q_kf^-1 * q_frame                 (rotation offset)
   off_p = R_kf_world^-1 (c_frame - c_kf)    (position offset, kf frame)
 
-Only recording is ported (`empty`, `add`, `add_single`); re-deriving and
-rebasing poses come with keyframe mapping.
+Re-derivation blends the per-connection candidates weighted by
+1 / (1e-5 + |off_p|) with sign-aligned quaternion averaging
+(HistoricalPose::ComputeWorldPosition), one batched (H, K) recompute for the
+whole table.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..geometry.se3 import Pose, quat_conj, quat_mul, rot_to_quat
+from ..geometry.se3 import Pose, quat_conj, quat_mul, quat_to_rot, rot_to_quat
+
+_FUDGE = 1e-5  # HistoricalPose.cpp scaleFudge
 
 
 def _world_parts(pose: Pose):
@@ -99,3 +103,56 @@ class PoseHistory(NamedTuple):
             if not torch.is_tensor(kf_slot) else kf_slot.to(torch.int32).expand(K)
         ok = torch.arange(K, device=dev) == 0
         return self.add(frame_id, pose, bank, slots, ok, near, far)
+
+    def derive_poses(self, kf_pose_bank: Pose):
+        """Re-derive every stored pose from the current keyframe poses:
+        batched HistoricalPose::ComputeWorldPosition. Returns (view poses
+        (H,), valid (H,))."""
+        conn = self.conn_kf.to(torch.int64)
+        kf = Pose(kf_pose_bank.R[conn], kf_pose_bank.t[conn])
+        q_kf, c_kf = _world_parts(kf)                       # (H, K, 4), (H, K, 3)
+        # per-connection candidates (ComputeOffsetPosition)
+        q_i = quat_mul(q_kf, self.off_q)
+        p_i = torch.einsum("hkij,hkj->hki", kf.R.transpose(-1, -2), self.off_p) + c_kf
+        w = torch.where(self.conn_ok,
+                        1.0 / (_FUDGE + torch.linalg.norm(self.off_p, dim=-1)), 0.0)
+        # sign-align every quaternion to the first valid connection's
+        first = torch.argmax(self.conn_ok.to(torch.int32), dim=1)
+        q_ref = torch.take_along_dim(q_i, first[:, None, None], dim=1)
+        sign = torch.where(torch.sum(q_i * q_ref, dim=-1) < 0.0, -1.0, 1.0)
+        safe = torch.clamp_min(torch.sum(w, dim=1), _FUDGE)
+        p = torch.sum(w[..., None] * p_i, dim=1) / safe[:, None]
+        q = torch.sum((w * sign)[..., None] * q_i, dim=1)
+        q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+        R_view = quat_to_rot(q).transpose(-1, -2)
+        t_view = -torch.einsum("hij,hj->hi", R_view, p)
+        valid = (self.frame_id >= 0) & torch.any(self.conn_ok, dim=1)
+        return Pose(R_view, t_view), valid
+
+    def rebase(self, old_kf_poses: Pose, kf_removed: torch.Tensor, new_basis,
+               kf_pose_bank: Pose) -> "PoseHistory":
+        """KeyframeRemoved (PoseHistory.h:77): connections to a culled
+        keyframe re-anchor to `new_basis` (a 0-d index tensor), keeping the
+        frame's world pose as derived from the bank before the removal. A
+        pose already connected to `new_basis` just drops the dead
+        connection, and at most one slot a row re-anchors, so no connection
+        is duplicated (HistoricalPose.cpp:22-24)."""
+        nb = new_basis.to(torch.int64).reshape(1)
+        affected = kf_removed[self.conn_kf.to(torch.int64)] & self.conn_ok   # (H, K)
+        has_nb = torch.any(self.conn_ok & ~affected & (self.conn_kf == nb), dim=1)
+        world, _ = self.derive_poses(old_kf_poses)
+        q_f, c_f = _world_parts(world)                          # (H, 4), (H, 3)
+        nb_pose = Pose(kf_pose_bank.R.index_select(0, nb)[0],
+                       kf_pose_bank.t.index_select(0, nb)[0])
+        q_nb, c_nb = _world_parts(nb_pose)
+        off_q_new = quat_mul(quat_conj(q_nb)[None, :], q_f)
+        off_p_new = torch.einsum("ij,hj->hi", nb_pose.R, c_f - c_nb[None, :])
+        first_aff = torch.cumsum(affected.to(torch.int32), dim=1) == 1
+        reanchor = affected & ~has_nb[:, None] & first_aff
+        drop = affected & ~reanchor
+        return self._replace(
+            conn_kf=torch.where(reanchor, nb.to(torch.int32), self.conn_kf),
+            conn_ok=self.conn_ok & ~drop,
+            off_q=torch.where(reanchor[..., None], off_q_new[:, None, :], self.off_q),
+            off_p=torch.where(reanchor[..., None], off_p_new[:, None, :], self.off_p),
+        )

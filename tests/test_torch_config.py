@@ -19,6 +19,7 @@ from mageslam_tpu_torch import interop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
+MAP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
 sys.path.insert(0, REPO)
 
 import bench  # noqa: E402
@@ -49,8 +50,8 @@ def test_bench_world_equals_bench_py():
 
 def test_port_stands_alone(tmp_path):
     """A copy of the package, imported where neither the repo nor the JAX
-    package is on the path, tracks a frame on the CPU and loads no module
-    of jax or mageslam_tpu."""
+    package is on the path, tracks a frame and maps a keyframe on the CPU
+    and loads no module of jax or mageslam_tpu."""
     shutil.copytree(os.path.join(REPO, "mageslam_tpu_torch"),
                     tmp_path / "mageslam_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -64,6 +65,19 @@ def test_port_stands_alone(tmp_path):
         f"s = m.SlamSession.from_jax_snapshot({FIXTURE!r}, m.golden_path_settings(),\n"
         "    (520., 520., 320., 240.), 640, 480, device='cpu')\n"
         "state = s.process_frame(img, 31 * 0.033, 31).state.name\n"
+        "import numpy as np\n"
+        "from mageslam_tpu_torch import interop\n"
+        "from mageslam_tpu_torch.runtime.mapping_step import mapping\n"
+        "from mageslam_tpu_torch.runtime.pose_history import PoseHistory\n"
+        "from mageslam_tpu_torch.tracking.frame_state import TrackedFrame\n"
+        "from mageslam_tpu_torch.worldmap.map_state import MapState\n"
+        f"z = dict(np.load({MAP_FIXTURE!r}))\n"
+        "pre = [interop.unflatten(c, p, z, 'cpu') for c, p in ((MapState, 'ev0_pre_map'),\n"
+        "       (PoseHistory, 'ev0_pre_ph'), (TrackedFrame, 'ev0_frame'))]\n"
+        "new_map, _, ki = mapping(m.golden_path_settings(), 640, 480, *pre,\n"
+        "                         float(z['ev0_map_scale']), with_tethers=False)\n"
+        "assert ki == 3 and int(new_map.kf_valid.sum()) == 4, ki\n"
+        "assert int(new_map.mp_valid.sum()) > int(pre[0].mp_valid.sum())\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(\n"
         "    ('jax.', 'jaxlib', 'mageslam_tpu.')) or k == 'mageslam_tpu')\n"
         "print(state, bad)\n"

@@ -1,6 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels (standalone Hamming, fused
-radius match) against their plain versions, and the tracking slice against
-the stored JAX outputs.
+radius match, fused two-way match) against their plain versions, and the
+tracking slice and the first mapping event against the stored JAX outputs.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -120,4 +120,87 @@ def test_slice_on_the_card_matches_stored_jax_outputs(cuda_device):
         np.testing.assert_allclose(r.pose.t.cpu().numpy(), ref["ref_t"][j], atol=1e-3)
     # one fused launch for the cascade and one for track-local-map a frame
     assert matching.LAUNCHES - fused == 12
+    assert hamming.LAUNCHES - ham == 0
+
+
+@pytest.mark.parametrize("n_a,n_b", chip_smoke.TWO_WAY_SHAPES + ((700, 1300),))
+@pytest.mark.parametrize("n_batch", chip_smoke.TWO_WAY_BATCHES)
+def test_two_way_kernel_matches_plain(cuda_device, n_batch, n_a, n_b):
+    rng = np.random.RandomState(n_batch * 7919 + n_a * 31 + n_b)
+    for shared in (False, True):
+        case = chip_smoke.two_way_case(rng, n_batch, n_a, n_b, shared)
+        args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(cuda_device)
+                for k in chip_smoke.TWO_WAY_ARGS]
+        for min_diff in chip_smoke.TWO_WAY_MIN_DIFFS:
+            before = matching.TWO_WAY_LAUNCHES
+            got = matching.match_two_way(*args, 6, min_diff)
+            torch.cuda.synchronize()
+            assert matching.TWO_WAY_LAUNCHES == before + 1
+            want = matching.match_two_way_plain(*args, 6, min_diff)
+            for g, w in zip(got, want):
+                assert g.shape == (n_batch, n_a)
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_two_way_unbatched_and_full_range_words(cuda_device):
+    rng = np.random.RandomState(5)
+    a, b = words(rng, 300, cuda_device), words(rng, 200, cuda_device)
+    b[:100] = a[:100] ^ 1                        # near copies: real matches
+    va = torch.ones(300, dtype=torch.bool, device=cuda_device)
+    vb = torch.ones(200, dtype=torch.bool, device=cuda_device)
+    got = matching.match_two_way(a, va, b, vb, 45, 8)
+    want = matching.match_two_way_plain(a, va, b, vb, 45, 8)
+    assert got[0].shape == (300,) and int((got[0] >= 0).sum()) >= 100
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_two_way_empty_sides_launch_nothing(cuda_device):
+    rng = np.random.RandomState(6)
+    a = words(rng, 16, cuda_device)
+    va = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    none = a[:0]
+    before = matching.TWO_WAY_LAUNCHES
+    idx, dist = matching.match_two_way(a, va, none, va[:0], 45, 8)
+    assert idx.tolist() == [-1] * 16 and dist.tolist() == [-1] * 16
+    idx, _ = matching.match_two_way(none, va[:0], a, va, 45, 8)
+    assert idx.shape == (0,) and matching.TWO_WAY_LAUNCHES == before
+
+
+def test_two_way_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    rng = np.random.RandomState(7)
+    case = chip_smoke.two_way_case(rng, 2, 64, 64, False)
+    args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(cuda_device)
+            for k in chip_smoke.TWO_WAY_ARGS]
+
+    def call(i, value):
+        return matching.match_two_way(*args[:i], value, *args[i + 1:], 45, 8)
+
+    with pytest.raises(ValueError):                       # a CPU tensor among CUDA ones
+        call(2, args[2].cpu())
+    with pytest.raises(TypeError):                        # dtype
+        call(1, args[1].to(torch.int32))
+    with pytest.raises(ValueError):                       # shape: valid_a of another batch
+        call(1, args[1][:1])
+    with pytest.raises(ValueError):                       # not contiguous
+        call(2, torch.cat([args[2], args[2]], 2)[:, :, ::2])
+    with pytest.raises(ValueError):                       # not 16-byte aligned
+        flat = args[2].reshape(-1)
+        call(2, torch.cat([flat, flat[:1]])[1:].reshape(2, 64, 8))
+
+
+def test_mapping_event_on_the_card_matches_the_jax_map(cuda_device):
+    pre = chip_smoke.load_event(cuda_device)
+    fused, two_way, ham = matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES
+    new_map, _, ki = chip_smoke.map_event(pre)
+    torch.cuda.synchronize()
+    assert ki == 3
+    assert chip_smoke.mask_diffs(new_map, pre[4]) == dict.fromkeys(chip_smoke.MAP_MASKS, 0)
+    torch.testing.assert_close(new_map.kf_pose.t, pre[4].kf_pose.t, rtol=0,
+                               atol=chip_smoke.MAP_POSE_ATOL)
+    torch.testing.assert_close(new_map.mp_pos[new_map.mp_valid], pre[4].mp_pos[new_map.mp_valid],
+                               rtol=0, atol=chip_smoke.MAP_POINT_ATOL)
+    # the loop-closure match and five re-association matches, one two-way call
+    assert matching.LAUNCHES - fused == 6
+    assert matching.TWO_WAY_LAUNCHES - two_way == 1
     assert hamming.LAUNCHES - ham == 0

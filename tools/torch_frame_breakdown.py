@@ -1,4 +1,5 @@
-"""Where a tracked frame's time goes in the PyTorch port, on one GPU.
+"""Where a tracked frame's and a mapping event's time go in the PyTorch
+port, on one GPU.
 
     python tools/torch_frame_breakdown.py [--frames 8] [--out breakdown.json]
 
@@ -9,7 +10,15 @@ on bench.py's frames 31.., times with CUDA events:
     blur, descriptor bit planes, gather) on the same frames;
 then traces `--frames` frames with torch.profiler for the number of device
 kernels per frame, the device-busy share of the wall time, and the top
-kernels by device time. Requires a CUDA device.
+kernels by device time.
+
+Then the first keyframe's mapping event (from the committed JAX state just
+before it, as chip_smoke.py maps it) `--map-repeats` times, with the wall
+time of each stage of runtime/mapping_step.py (loop-closure match, insert +
+feature index, recent-point cull, covisibility, new points, statistics
+refresh, window build, LM, write-back, keyframe cull, rebase), each ending
+in a device synchronize, and one traced event for its device events, device
+time and top kernels. Requires a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,9 +83,72 @@ def frontend_stages(img: torch.Tensor, fes) -> dict[str, float]:
     return t
 
 
+def mapping_breakdown(device, card: str, repeats: int) -> dict:
+    """Stage times and a device profile of the first keyframe's mapping
+    event."""
+    from mageslam_tpu_torch import golden_path_settings
+    from mageslam_tpu_torch.runtime.mapping_step import STAGES, mapping
+    from torch.profiler import ProfilerActivity, profile
+
+    pre_map, pre_ph, frame, map_scale, _ = chip_smoke.load_event(device)
+    settings = golden_path_settings()
+
+    def run(probe=None):
+        return mapping(settings, chip_smoke.WIDTH, chip_smoke.HEIGHT, pre_map, pre_ph,
+                       frame, map_scale, with_tethers=False, probe=probe)
+
+    run()                                               # warm pass
+    stage_ms = {name: [] for name in STAGES}
+    whole_ms = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        mark = [time.perf_counter()]
+
+        def probe(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_ms[name].append((now - mark[0]) * 1e3)
+            mark[0] = now
+
+        t0 = mark[0]
+        run(probe)
+        whole_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"repeats": repeats, "event_median_ms": statistics.median(whole_ms),
+           "stages_median_ms": {k: statistics.median(v) for k, v in stage_ms.items()}}
+    print(f"[mapping] event: {out['event_median_ms']:.3f} ms (median of {repeats}, a "
+          f"synchronize after each stage; {card})")
+    for k, v in out["stages_median_ms"].items():
+        print(f"[mapping] {k}: {v:.3f} ms")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(_device_us(e, False) for e in kernels) / 1e3
+    top = sorted(prof.key_averages(), key=lambda e: -_device_us(e, True))[:15]
+    out["profile"] = {
+        "wall_ms": wall_ms, "device_events": len(kernels), "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if kernels else None,
+        "top": [{"name": e.key, "count": e.count, "device_ms": _device_us(e, True) / 1e3}
+                for e in top]}
+    if kernels:
+        print(f"[mapping] traced event: {len(kernels)} device events, device busy "
+              f"{busy_ms:.3f} of {wall_ms:.2f} ms wall "
+              f"({100 * busy_ms / wall_ms:.1f} % under the profiler)")
+    else:
+        print("[mapping] the profiler recorded no device events: not measured")
+    for e in out["profile"]["top"]:
+        print(f"[mapping] {e['device_ms']:9.3f} ms  x{e['count']:6d}  {e['name'][:90]}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--map-repeats", type=int, default=5)
     ap.add_argument("--out", help="also write the summary here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -174,6 +246,7 @@ def main() -> int:
               f"{p['hamming_kernel_device_us_per_launch']:.2f} us device time each")
     for e in p["top"]:
         print(f"[profile] {e['device_ms']:9.3f} ms  x{e['count']:6d}  {e['name'][:90]}")
+    summary["mapping_event"] = mapping_breakdown(device, card, args.map_repeats)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
