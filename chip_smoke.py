@@ -14,10 +14,13 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      words; timed at the tracking shapes beside `torch._int_mm` of the ±1
      unpacked bits (256 - 2 * Hamming), the library yardstick;
    - the fused radius-match kernel (`csrc/radius_match.cu`) at S in {1, 3}
-     stages and (Q, T) up to (2048, 512) and (700, 3000), on low-entropy
-     descriptors (ties at best and second), rows without candidates and
-     points exactly on the radius; timed on the inputs the tracking path
-     gives it on frame 31 (no single PyTorch call computes it);
+     stages and (Q, T) up to (2048, 512) and (700, 3000), the mapping
+     step's (512, 512) among them, on low-entropy descriptors (ties at best
+     and second), rows without candidates and points exactly on the radius;
+     held exactly against the plain version and timed on the inputs the
+     tracking path gives it on frame 31 (2 calls) and on those the first
+     keyframe event gives it (6 calls: the loop-closure match and the five
+     re-association matches); no single PyTorch call computes it;
    - the fused two-way match kernel (`csrc/two_way_match.cu`) at B in {1, 5}
      and (N, M) up to (512, 512) and (440, 700), on low-entropy descriptors
      (ties in both directions), rows and columns without candidates and
@@ -40,8 +43,11 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    on the card from the committed JAX state just before it
    (tests/data/torch_port_bench640_map.npz), held against the JAX map after
    it: `kf_valid`, `mp_valid`, `kf_assoc`, `kf_member` exact, `kf_pose`
-   within 1e-3 and `mp_pos` within 5e-3 (float32 LM with sums in another
-   order). Timed over repeats and traced once for its device events.
+   within 1e-4 and `mp_pos` within 2e-3 (float32 LM with sums in another
+   order). Timed over repeats and traced once for its device events. The
+   event is mapped once more with one live tether put into the map, so that
+   local BA's tether residuals run on the card (a map without a live tether
+   skips them): the tethered keyframes must end nearer the tether's distance.
 6. Mapping window: a session from the frame-30 state runs frames 31-95
    through `process_frame`, mapping the keyframes at 54, 68 and 93. Every
    frame is held against the JAX session as in phase 4; the map after the
@@ -75,14 +81,17 @@ WIDTH, HEIGHT = 640, 480
 DT = 0.033
 KERNEL_SHAPES = ((1, 1), (129, 257), (1000, 440), (1024, 512), (2048, 512))
 PATH_SHAPES = ((1024, 512), (2048, 512))   # guided cascade, track-local-map
-RADIUS_SHAPES = ((1, 1), (129, 257), (1024, 512), (2048, 512), (700, 3000))
+RADIUS_SHAPES = ((1, 1), (129, 257), (512, 512), (1024, 512), (2048, 512), (700, 3000))
+# (stages, Q, T) of the radius matches of a tracked frame and of a keyframe event
+RADIUS_CALLS_TRACKED = ((3, 1024, 512), (1, 2048, 512))
+RADIUS_CALLS_KEYFRAME = ((1, 2048, 512),) + 5 * ((1, 512, 512),)
 RADIUS_STAGES = (1, 3)
 TWO_WAY_SHAPES = ((1, 1), (129, 257), (512, 512), (440, 700))
 TWO_WAY_BATCHES = (1, 5)
 TWO_WAY_MIN_DIFFS = (1, 8)
 POSE_ATOL = 1e-3
-MAP_POSE_ATOL = 1e-3      # kf_pose after a mapping event, against the JAX map
-MAP_POINT_ATOL = 5e-3     # mp_pos after a mapping event
+MAP_POSE_ATOL = 1e-4      # kf_pose after a mapping event, against the JAX map
+MAP_POINT_ATOL = 2e-3     # mp_pos after a mapping event
 MAP_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
 MAP_REPEATS = 5
 # kernel launches of one frame: (radius_match, two_way_match, hamming)
@@ -232,14 +241,17 @@ def profile(fn) -> list:
 
 def launch_us(fn, kernel_name: str, launches: int = 20) -> float | None:
     """Mean device time of one launch of `kernel_name`, over `launches`
-    calls of `fn` under the profiler (a second trace if the first holds no
-    such event); None where the trace has no device time."""
-    for _ in range(2):
-        times = [_device_us(e) for e in profile(lambda: [fn() for _ in range(launches)])
-                 if kernel_name in e.name]
-        if times and sum(times) > 0:
-            return sum(times) / len(times)
+    calls of `fn` under the profiler; None where the trace holds no device
+    time for it (reported as not measured)."""
+    times = [_device_us(e) for e in profile(lambda: [fn() for _ in range(launches)])
+             if kernel_name in e.name]
+    if times and sum(times) > 0:
+        return sum(times) / len(times)
     return None
+
+
+def us_text(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
 
 
 def bound(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0) -> tuple[float, str]:
@@ -287,8 +299,8 @@ def check_hamming(device) -> dict:
         rows[(n, m)] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_library,
                         "device_us": us, "bound_ms": bound_ms, "bound_by": bound_by}
         phase("kernel", f"hamming ({n}, {m}): {report}; torch._int_mm {t_library:.5f} ms; "
-                        f"device {us} us a launch (profiler); bound {bound_ms * 1e3:.3f} us "
-                        f"({bound_by})")
+                        f"device {us_text(us)} a launch (profiler); bound "
+                        f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return {"max_abs_err": max_err, "rows": rows}
 
 
@@ -323,10 +335,9 @@ def check_radius_match(device) -> int:
     return 0
 
 
-def capture_path_calls(device, frame: np.ndarray, frame_id: int) -> list[dict]:
-    """The tensor arguments of every `radius_match_stages` call that
-    tracking one frame makes (a fresh session from the fixture)."""
-    from mageslam_tpu_torch import SlamSession, golden_path_settings
+def capture_radius_calls(run) -> list[dict]:
+    """The arguments of every `radius_match_stages` call that `run()`
+    makes, tensors cloned."""
     from mageslam_tpu_torch.ops import matching
     from mageslam_tpu_torch.tracking import pose_estimation
 
@@ -339,29 +350,29 @@ def capture_path_calls(device, frame: np.ndarray, frame_id: int) -> list[dict]:
                       for k, v in call.items()})
         return real(*args, **kwargs)
 
-    sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM, WIDTH,
-                                         HEIGHT, device)
     matching.radius_match_stages = pose_estimation.radius_match_stages = recording
     try:
-        sess.process_frame(frame, frame_id * DT, frame_id)
+        run()
     finally:
         matching.radius_match_stages = pose_estimation.radius_match_stages = real
     return calls
 
 
-def time_radius_path(device, frame: np.ndarray, frame_id: int) -> dict:
-    """Times the fused kernel on the path's own inputs of one frame: per
-    call, kernel and plain in turns, device time a launch, and the bound."""
+def time_radius_calls(calls: list[dict], where: str, expected) -> dict:
+    """Holds the fused kernel exactly against its plain version on each
+    captured call and times it there: kernel and plain in turns, device
+    time a launch, and the bound from the call's own inputs. `expected` is
+    the (stages, Q, T) of each call, in order."""
     from mageslam_tpu_torch.ops import matching
 
     per_call = []
-    for c in capture_path_calls(device, frame, frame_id):
+    for c in calls:
         tensors = [c[k] for k in TENSOR_ARGS]
         scalars = (c["max_hamming"], c["min_diff"], c.get("octave_tol", 0))
         got = matching.radius_match_stages(*tensors, *scalars)
         want = matching.radius_match_stages_plain(*tensors, *scalars)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("radius_match kernel != plain on the path's inputs")
+            raise AssertionError(f"radius_match kernel != plain on the inputs of {where}")
         n_stages, n_query = c["radius"].shape
         n_target = c["target_desc"].shape[0]
         cand = candidates(c, scalars[2])
@@ -381,19 +392,41 @@ def time_radius_path(device, frame: np.ndarray, frame_id: int) -> dict:
                        f"radius_match_kernel<{n_stages}>")
         row = {"stages": n_stages, "shape": [n_query, n_target], "ms": t_kernel,
                "plain_ms": t_plain, "device_us": us, "bound_ms": bound_ms,
-               "bound_by": bound_by, "candidate_pairs": int(cand.any(0).sum())}
+               "bound_by": bound_by, "candidate_pairs": int(cand.any(0).sum()),
+               "matched": int((got[0] >= 0).sum())}
         per_call.append(row)
-        phase("kernel", f"radius_match on frame {frame_id}'s call S={n_stages} "
-                        f"({n_query}, {n_target}): {report}; device {us} us a launch "
-                        f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}; "
-                        f"{row['candidate_pairs']} candidate pairs)")
-    if [r["stages"] for r in per_call] != [3, 1]:
-        raise AssertionError(f"expected a cascade call (S=3) and a track-local-map call "
-                             f"(S=1) per frame, got {[r['stages'] for r in per_call]}")
+        phase("kernel", f"radius_match on {where}, call S={n_stages} "
+                        f"({n_query}, {n_target}): equal to plain, {row['matched']} matched; "
+                        f"{report}; device {us_text(us)} a launch (profiler); bound "
+                        f"{bound_ms * 1e3:.3f} us ({bound_by}; {row['candidate_pairs']} "
+                        f"candidate pairs)")
+    shapes = tuple((r["stages"], *r["shape"]) for r in per_call)
+    if shapes != tuple(expected):
+        raise AssertionError(f"{where}: radius_match calls (stages, Q, T) {shapes}, "
+                             f"expected {tuple(expected)}")
     return {"calls": per_call,
             **{k: sum(r[k] for r in per_call) for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_call)
             else "operations"}
+
+
+def time_radius_path(device, frame: np.ndarray, frame_id: int) -> dict:
+    """The fused kernel on the two calls that tracking one frame makes (a
+    fresh session from the fixture)."""
+    from mageslam_tpu_torch import SlamSession, golden_path_settings
+
+    sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM, WIDTH,
+                                         HEIGHT, device)
+    calls = capture_radius_calls(lambda: sess.process_frame(frame, frame_id * DT, frame_id))
+    return time_radius_calls(calls, f"frame {frame_id}", RADIUS_CALLS_TRACKED)
+
+
+def time_radius_mapping(device) -> dict:
+    """The fused kernel on the six calls of the first keyframe event: the
+    loop-closure match and the five re-association matches."""
+    pre = load_event(device)
+    calls = capture_radius_calls(lambda: map_event(pre))
+    return time_radius_calls(calls, "the first keyframe event", RADIUS_CALLS_KEYFRAME)
 
 
 def two_way_case(rng: np.random.RandomState, n_batch: int, n_a: int, n_b: int,
@@ -476,6 +509,20 @@ def load_event(device):
             float(data["ev0_map_scale"]), load_post_map(device, 0))
 
 
+def with_live_tether(pre, distance: float = 3.0, weight: float = 50.0):
+    """`pre` with one heavy distance tether between the keyframes in slots 1
+    and 2 (no ported path adds a tether yet, so the fixture's map has none)."""
+    pre_map = pre[0]
+    w = torch.zeros_like(pre_map.tether_weight)
+    w[0] = weight
+    return (pre_map._replace(
+        tether_origin=torch.full_like(pre_map.tether_origin, 1),
+        tether_owner=torch.full_like(pre_map.tether_owner, 2),
+        tether_kind=torch.zeros_like(pre_map.tether_kind),
+        tether_distance=torch.full_like(pre_map.tether_distance, distance),
+        tether_weight=w),) + tuple(pre[1:])
+
+
 def map_event(pre):
     """Map the fixture's first keyframe from `pre` (what `load_event` gives
     for it). Returns (map, pose_history, slot)."""
@@ -484,7 +531,7 @@ def map_event(pre):
 
     pre_map, pre_ph, frame, map_scale, _ = pre
     return mapping(golden_path_settings(), WIDTH, HEIGHT, pre_map, pre_ph, frame,
-                   map_scale, with_tethers=bool(torch.any(pre_map.tether_weight > 0)))
+                   map_scale)[:3]
 
 
 def mask_diffs(got, want) -> dict:
@@ -536,6 +583,7 @@ def check_map_event(device, card: str) -> None:
     phase("mapping", f"event wall time (mapping + synchronize): median "
                      f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max {max(ms):.3f} "
                      f"over {MAP_REPEATS} repeats; {card}")
+    check_tethered_event(pre, new_map, card)
     events = profile(lambda: map_event(pre))
     device_ms = sum(_device_us(e) for e in events) / 1e3
     if not events or device_ms == 0:
@@ -548,6 +596,34 @@ def check_map_event(device, card: str) -> None:
                          f"{n} {len(es)} launches, "
                          f"{sum(_device_us(e) for e in es) / max(len(es), 1):.2f} us each"
                          for n, es in ours.items()) + f"; {card}")
+
+
+def check_tethered_event(pre, free_map, card: str) -> None:
+    """The same event with one live tether in the map, so that local BA
+    runs its tether residuals on the card: the tethered keyframes must end
+    nearer the tether's distance than without it, with finite poses and the
+    same keyframes."""
+    def gap(m):
+        c = m.kf_pose.center()
+        return float(torch.linalg.norm(c[1] - c[2]))
+
+    distance = gap(free_map) - 0.1
+    tethered = with_live_tether(pre, distance)
+    map_event(tethered)                                   # warm pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    held, _, ki = map_event(tethered)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (bool(torch.isfinite(held.kf_pose.t).all()) and torch.equal(held.kf_valid, free_map.kf_valid)
+            and abs(gap(held) - distance) < 0.75 * abs(gap(free_map) - distance)):
+        raise AssertionError(f"tethered mapping event: slot {ki}, keyframes 1-2 are "
+                             f"{gap(held):.4f} apart, {gap(free_map):.4f} without the tether, "
+                             f"tether distance {distance:.4f}")
+    phase("mapping", f"event with one live distance tether (local BA with the tether "
+                     f"residuals): keyframes 1-2 end {gap(held):.4f} apart for a tether of "
+                     f"{distance:.4f}, {gap(free_map):.4f} without it; wall {ms:.3f} ms (one "
+                     f"run after a warm pass); {card}")
 
 
 def capture_two_way_call(device) -> dict:
@@ -629,7 +705,7 @@ def time_two_way_path(device) -> dict:
                     f"valid columns, {int((got[0] >= 0).sum())} matched: {report}; composite "
                     f"of {n_batch} x (hamming.cu + eager epilogue) {t_ham:.5f} ms, of "
                     f"{n_batch} x (torch._int_mm + eager epilogue) {t_mm:.5f} ms (median of "
-                    f"5 x 50 calls); device {us_scan} us (scan) + {us_gate} us (gate) a call "
+                    f"5 x 50 calls); device {us_text(us_scan)} (scan) + {us_text(us_gate)} (gate) a call "
                     f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}; {pairs} valid "
                     f"pairs)")
     return {"shape": [n_batch, n_a, n_b], "valid_pairs": pairs, "ms": t_kernel, "plain_ms": t_plain,
@@ -822,28 +898,31 @@ def main() -> int:
     frames = render_window(first, first + len(ref["ref_frame_id"]))
     fused = time_radius_path(device, frames[0], first)
 
+    fused_map = time_radius_mapping(device)
     two_way = time_two_way_path(device)
 
     run_window(device, frames, first)          # warm pass: allocator, caches
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
     results, ms = run_window(device, frames, first)
-    fused_launches, ham_launches = matching.LAUNCHES, hamming.LAUNCHES
+    fused_launches, two_way_launches, ham_launches = (
+        matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
     pose_err, count_err = check_window(results, ref)
     kf = [r.frame_id for r in results if r.is_keyframe]
     extra = LAUNCHES_KEYFRAME[0] - LAUNCHES_TRACKED[0]      # a mapped keyframe's own
     if (fused_launches != LAUNCHES_TRACKED[0] * len(frames) + extra * len(kf)
-            or matching.TWO_WAY_LAUNCHES != len(kf) or ham_launches != 0):
+            or two_way_launches != len(kf) or ham_launches != 0):
         raise AssertionError(f"over {len(frames)} frames with {len(kf)} keyframes mapped: "
                              f"radius_match kernel launched {fused_launches} times (expected "
                              f"{LAUNCHES_TRACKED[0]} a frame and {extra} more a keyframe), "
-                             f"two_way_match {matching.TWO_WAY_LAUNCHES} (expected 1 a "
+                             f"two_way_match {two_way_launches} (expected 1 a "
                              f"keyframe), hamming kernel {ham_launches} times (expected 0)")
     phase("slice", f"frames {first}-{first + len(frames) - 1}: all TRACKING, "
                    f"keyframes at {kf}, max pose err {pose_err:.3g} (limit "
                    f"{POSE_ATOL}), max tracked diff {count_err} (limit {TRACKED_TOL})")
     phase("slice", f"kernel launches in the run: radius_match {fused_launches} "
                    f"({LAUNCHES_TRACKED[0]} a frame, {extra} more on each of {len(kf)} "
-                   f"mapped keyframes), hamming {ham_launches}")
+                   f"mapped keyframes), two_way_match {two_way_launches}, hamming "
+                   f"{ham_launches}")
     phase("slice", f"per-frame wall time (process_frame + synchronize): median "
                    f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max "
                    f"{max(ms):.3f} over {len(ms)} frames after one warm pass; {card}")
@@ -853,22 +932,28 @@ def main() -> int:
     map_launches = check_map_window(device, card)
 
     ham_row = ham["rows"][PATH_SHAPES[-1]]
+    first_path = {"radius_match": fused_launches, "two_way_match": two_way_launches,
+                  "hamming_matrix": ham_launches}
+
+    def launches(kernel: str) -> dict:
+        return {"launches": first_path[kernel] + map_launches[kernel],
+                "launches_by_path": {"frames_31_54": first_path[kernel],
+                                     "frames_31_95_mapped": map_launches[kernel]}}
+
     print(json.dumps({"kernels": [
         {"name": "radius_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/radius_match.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
-         "launches": fused_launches + map_launches["radius_match"],
-         "launches_by_path": {"frames_31_54": fused_launches,
-                              "frames_31_95_mapped": map_launches["radius_match"]},
-         "max_abs_err": fused_err,
+         **launches("radius_match"), "max_abs_err": fused_err,
          "ms": fused["ms"], "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
          "bound_by": fused["bound_by"], "library_ms": None,
-         "note": "ms, plain_ms, bound_ms: sum of one frame's two calls", "calls": fused["calls"]},
+         "note": "ms, plain_ms, bound_ms: sum of a tracked frame's two calls (calls); "
+                 "keyframe: the same sums and calls of a keyframe event's six more",
+         "calls": fused["calls"], "keyframe": fused_map},
         {"name": "hamming_matrix", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/hamming.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
-         "launches": ham_launches + map_launches["hamming_matrix"],
-         "max_abs_err": ham["max_abs_err"],
+         **launches("hamming_matrix"), "max_abs_err": ham["max_abs_err"],
          "ms": ham_row["ms"], "plain_ms": ham_row["plain_ms"],
          "bound_ms": ham_row["bound_ms"], "bound_by": ham_row["bound_by"],
          "library_ms": ham_row["library_ms"], "shape": list(PATH_SHAPES[-1]),
@@ -876,7 +961,7 @@ def main() -> int:
         {"name": "two_way_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/two_way_match.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",
-         "launches": map_launches["two_way_match"], "max_abs_err": two_way_err,
+         **launches("two_way_match"), "max_abs_err": two_way_err,
          "ms": two_way["ms"], "plain_ms": two_way["plain_ms"],
          "bound_ms": two_way["bound_ms"], "bound_by": two_way["bound_by"],
          "library_ms": None,

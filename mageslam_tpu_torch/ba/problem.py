@@ -93,6 +93,17 @@ def empty_problem(n_cams: int, n_points: int, n_obs: int, n_tethers: int = 8,
     )
 
 
+def without_tethers(problem: BAProblem) -> BAProblem:
+    """The problem with an empty tether bank: the same optimum where no
+    tether has weight, without the tether residuals' work."""
+    return problem._replace(
+        tether_kind=problem.tether_kind[:0], tether_cam1=problem.tether_cam1[:0],
+        tether_cam2=problem.tether_cam2[:0],
+        tether_pose=Pose(problem.tether_pose.R[:0], problem.tether_pose.t[:0]),
+        tether_distance=problem.tether_distance[:0],
+        tether_weight=problem.tether_weight[:0])
+
+
 class BAState(NamedTuple):
     """Optimizer state carried across steps: the variables and the LM lambda
     (BundlerLib::Set/GetCurrentLambda, BundlerLib.cpp:354-362)."""

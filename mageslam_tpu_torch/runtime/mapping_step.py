@@ -9,7 +9,11 @@ The reference compiles the schedule into one dispatch and picks the BA tier
 with a device-side conditional. Here it runs eagerly and reads the device
 once: the three counts that choose the BA tier come back together with the
 keyframe's slot, so only the taken tier is computed and a full keyframe
-bank returns the map untouched. Mapping on a second device is not ported.
+bank returns the map untouched. The same read says whether the map holds
+a live tether: a mono map holds none, and local BA then runs without the
+tether bank, whose forward-mode Jacobians cost more host time than the rest
+of the event. The read's keyframe and point counts go back to the caller,
+which arms bank growth by them. Mapping on a second device is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import math
 
 import torch
 
-from ..ba.problem import BAState
+from ..ba.problem import BAState, without_tethers
 from ..ba.step import step_bundle_adjust
 from ..ops.indexing import any_drop, set_drop
 from ..ops.matching import dedup_by_target, radius_match
@@ -99,13 +103,14 @@ def ba_tiers(settings, capacity) -> tuple[tuple[int, int, int], tuple[int, int, 
 
 
 def mapping_body(settings, width: int, height: int, map_state: MapState,
-                 frame: TrackedFrame, map_scale, with_tethers: bool = True,
-                 probe=None):
+                 frame: TrackedFrame, map_scale, probe=None):
     """The schedule without the pose-history rebase. Returns (map_state,
-    ki, culled (K,) bool, old_poses): `ki` is the new keyframe's slot as a
-    Python int, -1 when the keyframe bank is full, and then the map is the
-    one passed in. `probe(stage)`, if given, is called after each of
-    STAGES but the last."""
+    ki, culled (K,) bool, old_poses, live): `ki` is the new keyframe's slot
+    as a Python int, -1 when the keyframe bank is full, and then the map is
+    the one passed in. `live` is the (keyframes, points) count of the map
+    before local BA, as Python ints: BA and the culls only remove, so it
+    bounds the returned map's counts from above. `probe(stage)`, if given,
+    is called after each of STAGES but the last."""
     fes = settings.MonoSettings.MonoCamera.FeatureExtractorSettings
     cs = settings.CovisibilitySettings
     ms = settings.MappingSettings
@@ -174,17 +179,18 @@ def mapping_body(settings, width: int, height: int, map_state: MapState,
         npr.state, npr.slots, fes.NumLevels, fes.ScaleFactor, max_obs_kf=8, fidx=fidx)
     probe("stats_refresh")
 
-    # the one host read: the new keyframe's slot and the three counts that
+    # the one host read: the new keyframe's slot, the three counts that
     # choose the BA tier (the reference's lax.cond gate: the whole map fits
-    # the small tier, so the window does)
+    # the small tier, so the window does) and the number of live tethers
     small_caps, full_caps = ba_tiers(settings, map_state.capacity)
     n_obs_v = torch.sum(((map_state.kf_assoc >= 0) & map_state.kf_kp_valid
                          & map_state.kf_valid[:, None]).to(torch.int32))
-    ki_host, n_kf_v, n_mp_v, n_obs_v = torch.stack([
+    ki_host, n_kf_v, n_mp_v, n_obs_v, n_tethers = torch.stack([
         ki.to(torch.int32), torch.sum(map_state.kf_valid.to(torch.int32)),
-        torch.sum(map_state.mp_valid.to(torch.int32)), n_obs_v]).tolist()
+        torch.sum(map_state.mp_valid.to(torch.int32)), n_obs_v,
+        torch.sum((map_state.tether_weight > 0).to(torch.int32))]).tolist()
     if ki_host < 0:   # keyframe bank full: the whole step is a no-op
-        return state0, -1, torch.zeros_like(state0.kf_valid), state0.kf_pose
+        return state0, -1, torch.zeros_like(state0.kf_valid), state0.kf_pose, (n_kf_v, n_mp_v)
     fits_small = (n_kf_v <= small_caps[0] and n_mp_v <= small_caps[1]
                   and n_obs_v <= small_caps[2])
     max_cams, max_points, max_obs = small_caps if fits_small else full_caps
@@ -200,11 +206,11 @@ def mapping_body(settings, width: int, height: int, map_state: MapState,
         theta0=cs.CovisMinThreshold, upper_connections=cs.UpperConnectionsForBA,
         lower_connections=cs.LowerConnectionsForBA, theta_min=cs.CovisMinThreshold,
         theta_step=cs.CovisBaStepThreshold, theta_max_steps=cs.MaxSteps,
-        member=fidx >= 0, with_tethers=with_tethers)
+        member=fidx >= 0)
+    problem = window.problem if n_tethers else without_tethers(window.problem)
     probe("window_build")
     st, _, outliers = step_bundle_adjust(
-        window.problem, BAState.from_problem(window.problem), widths,
-        float(bas.MaxOutlierError) ** 2)
+        problem, BAState.from_problem(problem), widths, float(bas.MaxOutlierError) ** 2)
     probe("lm")
     map_state, fidx = apply_ba_results(map_state, window, st.poses, st.points,
                                        outliers, fes.NumLevels, fes.ScaleFactor,
@@ -222,21 +228,20 @@ def mapping_body(settings, width: int, height: int, map_state: MapState,
     # the maintained index is the membership cache
     map_state = map_state._replace(kf_member=fidx >= 0)
     probe("keyframe_cull")
-    return map_state, ki_host, culled, old_poses
+    return map_state, ki_host, culled, old_poses, (n_kf_v, n_mp_v)
 
 
 def mapping(settings, width: int, height: int, map_state: MapState,
-            pose_history: PoseHistory, frame: TrackedFrame, map_scale,
-            with_tethers: bool = True, probe=None):
-    """Map one keyframe. Returns (map_state, pose_history, ki): the new
-    keyframe's slot as a Python int, -1 (and nothing changed) when the
-    keyframe bank is full."""
-    new_state, ki, culled, old_poses = mapping_body(
-        settings, width, height, map_state, frame, map_scale, with_tethers, probe)
+            pose_history: PoseHistory, frame: TrackedFrame, map_scale, probe=None):
+    """Map one keyframe. Returns (map_state, pose_history, ki, live): the
+    new keyframe's slot as a Python int, -1 (and nothing changed) when the
+    keyframe bank is full; `live` as `mapping_body` gives it."""
+    new_state, ki, culled, old_poses, live = mapping_body(
+        settings, width, height, map_state, frame, map_scale, probe)
     if ki < 0:
-        return map_state, pose_history, ki
+        return map_state, pose_history, ki, live
     pose_history = pose_history.rebase(
         old_poses, culled, torch.tensor(ki, device=culled.device), new_state.kf_pose)
     if probe is not None:
         probe("rebase")
-    return new_state, pose_history, ki
+    return new_state, pose_history, ki, live

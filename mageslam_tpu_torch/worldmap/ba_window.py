@@ -85,15 +85,12 @@ def build_local_ba_window(state: MapState, ki, max_cams: int, max_points: int,
                           lower_connections: int = 1500, theta_min: int = 15,
                           theta_step: int = 15, theta_max_steps: int = 1,
                           global_window: bool = False,
-                          member: torch.Tensor | None = None,
-                          with_tethers: bool = True) -> BAWindow:
+                          member: torch.Tensor | None = None) -> BAWindow:
     """Assemble the covisibility-bounded local BA problem around keyframe
     `ki` (a 0-d index tensor), or the whole map when `global_window`.
     Keyframes outside the covisible set that observe its points come in as
     fixed anchors (ThreadSafeMap.cpp:936-941). Pass a current `member`
-    (K, P) to skip the membership rebuild. With `with_tethers` false the
-    problem carries an empty tether bank: the same result for a map that
-    holds no tether, without the tether residuals' work."""
+    (K, P) to skip the membership rebuild."""
     K, P, N = state.capacity
     dev = state.kf_valid.device
     if member is None:
@@ -153,8 +150,17 @@ def build_local_ba_window(state: MapState, ki, max_cams: int, max_points: int,
 
     fixed = state.kf_fixed[cam_safe] | ~kc_mask[cam_safe]
     problem = empty_problem(max_cams, max_points, max_obs,
-                            n_tethers=state.tether_weight.shape[0] if with_tethers else 0,
-                            device=dev)
+                            n_tethers=state.tether_weight.shape[0], device=dev)
+    # persisted keyframe tethers with both endpoints in the window
+    # (BundleAdjust.cpp:57-113; cam1 = origin, cam2 = owner)
+    to_safe = torch.where(state.tether_origin >= 0, state.tether_origin, 0).to(torch.int64)
+    tw_safe = torch.where(state.tether_owner >= 0, state.tether_owner, 0).to(torch.int64)
+    t_cam1 = cam_local[to_safe]
+    t_cam2 = cam_local[tw_safe]
+    t_ok = ((state.tether_weight > 0) & (state.tether_origin >= 0)
+            & (state.tether_owner >= 0) & (t_cam1 >= 0) & (t_cam2 >= 0)
+            & state.kf_valid[to_safe] & state.kf_valid[tw_safe])
+
     problem = problem._replace(
         poses=Pose(state.kf_pose.R[cam_safe], state.kf_pose.t[cam_safe]),
         intrinsics=state.kf_cam[cam_safe],
@@ -166,25 +172,13 @@ def build_local_ba_window(state: MapState, ki, max_cams: int, max_points: int,
         obs_pt=obs_pt,
         obs_uv=obs_uv,
         obs_info=obs_info,
+        tether_kind=state.tether_kind,
+        tether_cam1=torch.where(t_ok, t_cam1, 0),
+        tether_cam2=torch.where(t_ok, t_cam2, 0),
+        tether_pose=state.tether_pose,
+        tether_distance=state.tether_distance,
+        tether_weight=torch.where(t_ok, state.tether_weight, 0.0),
     )
-    if with_tethers:
-        # persisted keyframe tethers with both endpoints in the window
-        # (BundleAdjust.cpp:57-113; cam1 = origin, cam2 = owner)
-        to_safe = torch.where(state.tether_origin >= 0, state.tether_origin, 0).to(torch.int64)
-        tw_safe = torch.where(state.tether_owner >= 0, state.tether_owner, 0).to(torch.int64)
-        t_cam1 = cam_local[to_safe]
-        t_cam2 = cam_local[tw_safe]
-        t_ok = ((state.tether_weight > 0) & (state.tether_origin >= 0)
-                & (state.tether_owner >= 0) & (t_cam1 >= 0) & (t_cam2 >= 0)
-                & state.kf_valid[to_safe] & state.kf_valid[tw_safe])
-        problem = problem._replace(
-            tether_kind=state.tether_kind,
-            tether_cam1=torch.where(t_ok, t_cam1, 0),
-            tether_cam2=torch.where(t_ok, t_cam2, 0),
-            tether_pose=state.tether_pose,
-            tether_distance=state.tether_distance,
-            tether_weight=torch.where(t_ok, state.tether_weight, 0.0),
-        )
     return BAWindow(
         problem=problem,
         cam_slot=cam_slot,

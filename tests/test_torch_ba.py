@@ -317,8 +317,10 @@ def test_build_local_ba_window(window, kw):
 def test_window_without_tethers_is_the_same_problem(window):
     m = to_torch(window["map"])
     full = ba_window.build_local_ba_window(m, torch.tensor(4), **WINDOW_KW)
-    bare = ba_window.build_local_ba_window(m, torch.tensor(4), with_tethers=False, **WINDOW_KW)
-    assert bare.problem.tether_weight.shape == (0,) and not full.problem.tether_weight.any()
+    p = full.problem
+    assert p.tether_weight.shape == m.tether_weight.shape and not p.tether_weight.any()
+    bare = full._replace(problem=problem.without_tethers(p))
+    assert bare.problem.tether_weight.shape == (0,) and bare.problem.obs_uv is p.obs_uv
     a = step.step_bundle_adjust(full.problem, problem.BAState.from_problem(full.problem),
                                 [1.5, 1.2], 9.0)
     b = step.step_bundle_adjust(bare.problem, problem.BAState.from_problem(bare.problem),

@@ -74,8 +74,8 @@ def test_port_stands_alone(tmp_path):
         f"z = dict(np.load({MAP_FIXTURE!r}))\n"
         "pre = [interop.unflatten(c, p, z, 'cpu') for c, p in ((MapState, 'ev0_pre_map'),\n"
         "       (PoseHistory, 'ev0_pre_ph'), (TrackedFrame, 'ev0_frame'))]\n"
-        "new_map, _, ki = mapping(m.golden_path_settings(), 640, 480, *pre,\n"
-        "                         float(z['ev0_map_scale']), with_tethers=False)\n"
+        "new_map, _, ki, live = mapping(m.golden_path_settings(), 640, 480, *pre,\n"
+        "                               float(z['ev0_map_scale']))\n"
         "assert ki == 3 and int(new_map.kf_valid.sum()) == 4, ki\n"
         "assert int(new_map.mp_valid.sum()) > int(pre[0].mp_valid.sum())\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(\n"

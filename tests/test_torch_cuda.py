@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the CUDA kernels (standalone Hamming, fused
-radius match, fused two-way match) against their plain versions, and the
-tracking slice and the first mapping event against the stored JAX outputs.
+radius match, fused two-way match) against their plain versions, the
+tracking slice and the first mapping event against the stored JAX outputs,
+and local BA with live tethers against the same run on the CPU.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -204,3 +205,87 @@ def test_mapping_event_on_the_card_matches_the_jax_map(cuda_device):
     assert matching.LAUNCHES - fused == 6
     assert matching.TWO_WAY_LAUNCHES - two_way == 1
     assert hamming.LAUNCHES - ham == 0
+
+
+def tethered_problem(device, seed=0, K=6, Pn=40, O=160, Tn=6):
+    """A synthetic BA problem with all three tether kinds and one empty
+    tether slot, from a numpy seed."""
+    from mageslam_tpu_torch.ba.problem import empty_problem
+    from mageslam_tpu_torch.geometry.se3 import Pose, exp_se3
+
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))           # noqa: E731
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))             # noqa: E731
+    poses = exp_se3(f32(rng.randn(K, 6) * 0.05))
+    points = f32(rng.uniform(-1, 1, (Pn, 3)) + [0, 0, 4])
+    cam = np.tile(np.float32([520, 520, 320, 240]), (K, 1))
+    obs_cam, obs_pt = rng.randint(0, K, O), rng.randint(0, Pn, O)
+    Xc = torch.einsum("oij,oj->oi", poses.R[obs_cam], points[obs_pt]) + poses.t[obs_cam]
+    uv = 520 * Xc[:, :2] / Xc[:, 2:] + f32([320, 240]) + f32(rng.randn(O, 2) * 0.5)
+    delta = exp_se3(f32(rng.randn(Tn, 6) * 0.1))
+    p = empty_problem(K, Pn, O, n_tethers=Tn, device="cpu")._replace(
+        poses=poses, intrinsics=f32(cam), cam_fixed=torch.arange(K) == 0,
+        cam_valid=torch.ones(K, dtype=torch.bool), points=points,
+        pt_valid=torch.ones(Pn, dtype=torch.bool), obs_cam=i32(obs_cam), obs_pt=i32(obs_pt),
+        obs_uv=uv, obs_info=torch.ones(O),
+        tether_kind=i32(np.arange(Tn) % 3), tether_cam1=i32(rng.randint(0, K // 2, Tn)),
+        tether_cam2=i32(rng.randint(K // 2, K, Tn)), tether_pose=Pose(delta.R, delta.t),
+        tether_distance=f32(rng.uniform(0.2, 1, Tn)),
+        tether_weight=f32(np.where(np.arange(Tn) == Tn - 1, 0, 2.0)))
+    return type(p)(*(Pose(x.R.to(device), x.t.to(device)) if isinstance(x, Pose)
+                     else x.to(device) if isinstance(x, torch.Tensor) else x for x in p))
+
+
+def test_tether_residuals_on_the_card_match_the_cpu(cuda_device):
+    from mageslam_tpu_torch.ba import residuals
+
+    on_card = tethered_problem(cuda_device)
+    on_cpu = tethered_problem("cpu")
+    got = residuals.tether_residuals(on_card, on_card.poses)
+    want = residuals.tether_residuals(on_cpu, on_cpu.poses)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == torch.float32 and g.is_cuda, name
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4, msg=name)
+    assert float(got.Jc1.abs().max()) > 0.1 and float(got.chi2.max()) > 0
+
+
+def test_bundle_adjust_with_tethers_on_the_card_matches_the_cpu(cuda_device):
+    from mageslam_tpu_torch.ba import problem, step
+
+    out = []
+    for device in (cuda_device, "cpu"):
+        p = tethered_problem(device)
+        st, _, outliers = step.step_bundle_adjust(p, problem.BAState.from_problem(p),
+                                                  [1.5, 1.2, 1.0], 9.0)
+        out.append((st.poses.t.cpu(), st.points.cpu(), outliers.cpu(), p.poses.t.cpu()))
+    (t_a, x_a, o_a, t0), (t_b, x_b, o_b, _) = out
+    torch.testing.assert_close(t_a, t_b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(x_a, x_b, rtol=0, atol=1e-3)
+    assert torch.equal(o_a, o_b)
+    assert float((t_a - t0).abs().max()) > 1e-3           # the poses moved
+
+
+def test_mapping_event_with_a_live_tether_on_the_card(cuda_device):
+    """The map's tether bank reaches local BA on the card: a heavy distance
+    tether between two window keyframes moves the mapped poses, as on the
+    CPU."""
+    from mageslam_tpu_torch import golden_path_settings as settings
+    from mageslam_tpu_torch.runtime.mapping_step import mapping
+
+    maps = []
+    for device in (cuda_device, torch.device("cpu")):
+        pre_map, pre_ph, frame, map_scale, _ = chip_smoke.load_event(device)
+        n = pre_map.tether_weight.shape[0]
+        weight = torch.zeros(n, device=device)
+        weight[0] = 50.0
+        tethered = pre_map._replace(
+            tether_origin=torch.full_like(pre_map.tether_origin, 1),
+            tether_owner=torch.full_like(pre_map.tether_owner, 2),
+            tether_distance=torch.full_like(pre_map.tether_distance, 3.0),
+            tether_weight=weight)
+        free = mapping(settings(), 640, 480, pre_map, pre_ph, frame, map_scale)[0]
+        held = mapping(settings(), 640, 480, tethered, pre_ph, frame, map_scale)[0]
+        assert not torch.allclose(held.kf_pose.t, free.kf_pose.t, atol=1e-3)
+        maps.append(held)
+    torch.testing.assert_close(maps[0].kf_pose.t.cpu(), maps[1].kf_pose.t, rtol=0, atol=1e-3)
+    assert torch.equal(maps[0].kf_valid.cpu(), maps[1].kf_valid)

@@ -79,10 +79,13 @@ def test_one_mapping_event_equals_the_jax_map(fixture):
     pre_map, pre_ph, frame, map_scale = event_inputs(fixture)
     fused, two_way, ham = matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES
     stages = []
-    new_map, new_ph, ki = mapping_step.mapping(
+    new_map, new_ph, ki, live = mapping_step.mapping(
         golden_path_settings(), 640, 480, pre_map, pre_ph, frame, map_scale,
-        with_tethers=False, probe=stages.append)
+        probe=stages.append)
     assert ki == int(fixture["ev_ki"][0]) == 3
+    # the counts before local BA bound the mapped map's from above
+    assert live[0] == int(new_map.kf_valid.sum()) == 4
+    assert int(new_map.mp_valid.sum()) <= live[1] <= int(new_map.mp_valid.sum()) + 20
     assert tuple(stages) == mapping_step.STAGES
     assert_state_close(new_map, fixture, "ev0_post_map", MapState)
     assert_state_close(new_ph, fixture, "ev0_post_ph", PoseHistory)
@@ -93,15 +96,36 @@ def test_one_mapping_event_equals_the_jax_map(fixture):
 
 
 def test_with_tethers_gives_the_same_map(fixture):
+    """Tether slots of weight 0 are inert whatever else they hold; a live
+    tether between two window keyframes moves the map."""
     pre_map, pre_ph, frame, map_scale = event_inputs(fixture)
     assert not pre_map.tether_weight.any()
+    rng = np.random.RandomState(3)
+    n = pre_map.tether_weight.shape[0]
+    junk = pre_map._replace(
+        tether_kind=torch.from_numpy(rng.randint(0, 3, n).astype(np.int32)),
+        tether_origin=torch.from_numpy(rng.randint(-1, 3, n).astype(np.int32)),
+        tether_owner=torch.from_numpy(rng.randint(-1, 3, n).astype(np.int32)),
+        tether_distance=torch.from_numpy(rng.uniform(0.1, 2.0, n).astype(np.float32)))
     a = mapping_step.mapping(golden_path_settings(), 640, 480, pre_map, pre_ph, frame,
-                             map_scale, with_tethers=True)
-    b = mapping_step.mapping(golden_path_settings(), 640, 480, pre_map, pre_ph, frame,
-                             map_scale, with_tethers=False)
+                             map_scale)
+    b = mapping_step.mapping(golden_path_settings(), 640, 480, junk, pre_ph, frame,
+                             map_scale)
+    live = junk._replace(
+        tether_kind=torch.zeros_like(junk.tether_kind),            # distance tethers
+        tether_origin=torch.full_like(junk.tether_origin, 1),
+        tether_owner=torch.full_like(junk.tether_owner, 2),
+        tether_distance=torch.full_like(junk.tether_distance, 3.0),
+        tether_weight=torch.cat([torch.full((1,), 50.0), torch.zeros(n - 1)]))
+    c = mapping_step.mapping(golden_path_settings(), 640, 480, live, pre_ph, frame,
+                             map_scale)
+    assert not torch.allclose(c[0].kf_pose.t, a[0].kf_pose.t, atol=1e-3)
+    assert bool(torch.isfinite(c[0].kf_pose.t).all())
     # zero-weight tethers add exact zeros; the float leaves still move in the
     # last bit, because `index_put_` sums duplicates in no fixed order
     for (name, x), y in zip(interop.to_numpy(a[0]).items(), interop.to_numpy(b[0]).values()):
+        if name.startswith("tether_"):
+            continue
         if x.dtype.kind == "f":
             np.testing.assert_allclose(x, y, rtol=0, atol=1e-5, err_msg=name)
         else:
@@ -111,8 +135,8 @@ def test_with_tethers_gives_the_same_map(fixture):
 def test_full_keyframe_bank_leaves_everything_as_it_was(fixture):
     pre_map, pre_ph, frame, map_scale = event_inputs(fixture)
     full = pre_map._replace(kf_valid=torch.ones_like(pre_map.kf_valid))
-    new_map, new_ph, ki = mapping_step.mapping(golden_path_settings(), 640, 480, full,
-                                               pre_ph, frame, map_scale)
+    new_map, new_ph, ki, _ = mapping_step.mapping(golden_path_settings(), 640, 480, full,
+                                                  pre_ph, frame, map_scale)
     assert ki == -1 and new_map is full and new_ph is pre_ph
 
 

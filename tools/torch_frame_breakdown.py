@@ -18,7 +18,9 @@ time of each stage of runtime/mapping_step.py (loop-closure match, insert +
 feature index, recent-point cull, covisibility, new points, statistics
 refresh, window build, LM, write-back, keyframe cull, rebase), each ending
 in a device synchronize, and one traced event for its device events, device
-time and top kernels. Requires a CUDA device.
+time and top kernels; then the same with one live tether put into the map,
+which makes local BA run its tether residuals (a map without a live tether
+skips them). Requires a CUDA device.
 """
 
 from __future__ import annotations
@@ -83,19 +85,21 @@ def frontend_stages(img: torch.Tensor, fes) -> dict[str, float]:
     return t
 
 
-def mapping_breakdown(device, card: str, repeats: int) -> dict:
+def mapping_breakdown(device, card: str, repeats: int, tethered: bool = False) -> dict:
     """Stage times and a device profile of the first keyframe's mapping
-    event."""
+    event; `tethered` puts one live tether into the map first."""
     from mageslam_tpu_torch import golden_path_settings
     from mageslam_tpu_torch.runtime.mapping_step import STAGES, mapping
     from torch.profiler import ProfilerActivity, profile
 
-    pre_map, pre_ph, frame, map_scale, _ = chip_smoke.load_event(device)
+    pre = chip_smoke.load_event(device)
+    pre_map, pre_ph, frame, map_scale, _ = chip_smoke.with_live_tether(pre) if tethered else pre
     settings = golden_path_settings()
+    tag = "mapping, one live tether" if tethered else "mapping"
 
     def run(probe=None):
         return mapping(settings, chip_smoke.WIDTH, chip_smoke.HEIGHT, pre_map, pre_ph,
-                       frame, map_scale, with_tethers=False, probe=probe)
+                       frame, map_scale, probe=probe)
 
     run()                                               # warm pass
     stage_ms = {name: [] for name in STAGES}
@@ -115,10 +119,10 @@ def mapping_breakdown(device, card: str, repeats: int) -> dict:
         whole_ms.append((time.perf_counter() - t0) * 1e3)
     out = {"repeats": repeats, "event_median_ms": statistics.median(whole_ms),
            "stages_median_ms": {k: statistics.median(v) for k, v in stage_ms.items()}}
-    print(f"[mapping] event: {out['event_median_ms']:.3f} ms (median of {repeats}, a "
+    print(f"[{tag}] event: {out['event_median_ms']:.3f} ms (median of {repeats}, a "
           f"synchronize after each stage; {card})")
     for k, v in out["stages_median_ms"].items():
-        print(f"[mapping] {k}: {v:.3f} ms")
+        print(f"[{tag}] {k}: {v:.3f} ms")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -135,13 +139,13 @@ def mapping_breakdown(device, card: str, repeats: int) -> dict:
         "top": [{"name": e.key, "count": e.count, "device_ms": _device_us(e, True) / 1e3}
                 for e in top]}
     if kernels:
-        print(f"[mapping] traced event: {len(kernels)} device events, device busy "
+        print(f"[{tag}] traced event: {len(kernels)} device events, device busy "
               f"{busy_ms:.3f} of {wall_ms:.2f} ms wall "
               f"({100 * busy_ms / wall_ms:.1f} % under the profiler)")
     else:
-        print("[mapping] the profiler recorded no device events: not measured")
+        print(f"[{tag}] the profiler recorded no device events: not measured")
     for e in out["profile"]["top"]:
-        print(f"[mapping] {e['device_ms']:9.3f} ms  x{e['count']:6d}  {e['name'][:90]}")
+        print(f"[{tag}] {e['device_ms']:9.3f} ms  x{e['count']:6d}  {e['name'][:90]}")
     return out
 
 
@@ -247,6 +251,8 @@ def main() -> int:
     for e in p["top"]:
         print(f"[profile] {e['device_ms']:9.3f} ms  x{e['count']:6d}  {e['name'][:90]}")
     summary["mapping_event"] = mapping_breakdown(device, card, args.map_repeats)
+    summary["mapping_event_tethered"] = mapping_breakdown(device, card, args.map_repeats,
+                                                          tethered=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
