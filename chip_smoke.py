@@ -10,9 +10,13 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    prints what ptxas reports for each kernel.
 3. Kernel check, each kernel against its plain PyTorch version on the card,
    exact:
-   - the standalone Hamming kernel (`csrc/hamming.cu`) on full-range 32-bit
-     words; timed at the tracking shapes beside `torch._int_mm` of the ±1
-     unpacked bits (256 - 2 * Hamming), the library yardstick;
+   - the standalone Hamming kernel (`csrc/hamming.cu`, on the tensor cores
+     through `csrc/hamming_tile.cuh`) on full-range 32-bit words at
+     KERNEL_SHAPES, the full point bank (8192, 512) and BoW's word
+     assignment (440, 64), and on low-entropy words; timed at the tracking
+     shapes and at (8192, 512) beside `torch._int_mm` of the ±1 int8 bits
+     (256 - 2 * Hamming), the library yardstick, whose device time a call
+     is read from the profiler too;
    - the fused radius-match kernel (`csrc/radius_match.cu`) at S in {1, 3}
      stages and (Q, T) up to (2048, 512) and (700, 3000), the mapping
      step's (512, 512) among them, on low-entropy descriptors (ties at best
@@ -21,13 +25,15 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      tracking path gives it on frame 31 (2 calls) and on those the first
      keyframe event gives it (6 calls: the loop-closure match and the five
      re-association matches); no single PyTorch call computes it;
-   - the fused two-way match kernel (`csrc/two_way_match.cu`) at B in {1, 5}
-     and (N, M) up to (512, 512) and (440, 700), on low-entropy descriptors
-     (ties in both directions), rows and columns without candidates and
-     min_diff in {1, 8}; timed on the inputs the first keyframe event gives
-     it, beside the two composites it replaces (per neighbour the standalone
-     Hamming kernel, or `torch._int_mm` of the ±1 bits, and the eager
-     epilogue; no single PyTorch call computes it).
+   - the fused two-way match kernel (`csrc/two_way_match.cu`, its scan on
+     the same tensor-core tile) at B in {1, 5} and (N, M) up to (512, 512)
+     and (440, 700), and mono init's (440, 440) at B = 1, on low-entropy
+     descriptors (ties in both directions), rows and columns without
+     candidates and min_diff in {1, 8}; timed on the inputs the first
+     keyframe event gives it and at mono init's shape, beside the two
+     composites it replaces (per batch entry the standalone Hamming kernel,
+     or `torch._int_mm` of the ±1 bits, and the eager epilogue; no single
+     PyTorch call computes it).
    Each call is timed with CUDA events in turns (kernel, plain, plain,
    kernel), and each launch's device time is read from torch.profiler.
 4. Slice: starts a session on the card from the committed JAX state
@@ -81,6 +87,9 @@ WIDTH, HEIGHT = 640, 480
 DT = 0.033
 KERNEL_SHAPES = ((1, 1), (129, 257), (1000, 440), (1024, 512), (2048, 512))
 PATH_SHAPES = ((1024, 512), (2048, 512))   # guided cascade, track-local-map
+BANK_SHAPE = (8192, 512)   # the full point bank against a frame's feature slots
+BOW_SHAPE = (440, 64)      # a frame's features against a vocabulary level's words
+HAMMING_TIMED = PATH_SHAPES + (BANK_SHAPE,)
 RADIUS_SHAPES = ((1, 1), (129, 257), (512, 512), (1024, 512), (2048, 512), (700, 3000))
 # (stages, Q, T) of the radius matches of a tracked frame and of a keyframe event
 RADIUS_CALLS_TRACKED = ((3, 1024, 512), (1, 2048, 512))
@@ -89,6 +98,8 @@ RADIUS_STAGES = (1, 3)
 TWO_WAY_SHAPES = ((1, 1), (129, 257), (512, 512), (440, 700))
 TWO_WAY_BATCHES = (1, 5)
 TWO_WAY_MIN_DIFFS = (1, 8)
+INIT_SHAPE = (440, 440)    # mono init's match of two frames' features, B = 1
+INIT_GATES = (30, 1)       # its max_hamming and min_diff (InitSettings)
 POSE_ATOL = 1e-3
 MAP_POSE_ATOL = 1e-4      # kf_pose after a mapping event, against the JAX map
 MAP_POINT_ATOL = 2e-3     # mp_pos after a mapping event
@@ -262,14 +273,34 @@ def bound(n_bytes: float, f32_ops: float = 0.0, int8_ops: float = 0.0) -> tuple[
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def call_device_us(fn, calls: int = 20) -> tuple[float | None, list[str]]:
+    """(mean device time of one call of `fn` over all the kernels it
+    launches, their names), over `calls` traced calls; None where the trace
+    holds no device time. For a library call whose kernels are not ours."""
+    events = [e for e in profile(lambda: [fn() for _ in range(calls)])
+              if _device_us(e) > 0 and "memcpy" not in e.name.lower()
+              and "memset" not in e.name.lower()]
+    total = sum(_device_us(e) for e in events)
+    return (total / calls if total > 0 else None), sorted({e.name for e in events})
+
+
 def check_hamming(device) -> dict:
+    """The standalone Hamming kernel against its plain version, exact, on
+    full-range words at every listed shape and on low-entropy words; then
+    timed at HAMMING_TIMED beside `torch._int_mm` of the ±1 bits."""
     from mageslam_tpu_torch.ops import hamming
 
     rng = np.random.RandomState(0)
     max_err = 0
-    for n, m in KERNEL_SHAPES:
-        a = torch.from_numpy(random_words(rng, n).view(np.int32)).to(device)
-        b = torch.from_numpy(random_words(rng, m).view(np.int32)).to(device)
+    cases = [(n, m, False) for n, m in KERNEL_SHAPES + (BANK_SHAPE, BOW_SHAPE)]
+    cases += [(1000, 440, True), (BANK_SHAPE[0], BANK_SHAPE[1], True)]
+    for n, m, low in cases:
+        if low:   # few distinct words: equal rows and columns, distances 0 and repeats
+            a, b = (torch.from_numpy(LOW_ENTROPY_WORDS[rng.randint(0, 6, (r, 8))].view(np.int32))
+                    .to(device) for r in (n, m))
+        else:
+            a = torch.from_numpy(random_words(rng, n).view(np.int32)).to(device)
+            b = torch.from_numpy(random_words(rng, m).view(np.int32)).to(device)
         got = hamming.hamming_matrix(a, b)
         want = hamming.hamming_matrix_plain(a, b)
         torch.cuda.synchronize()
@@ -279,28 +310,32 @@ def check_hamming(device) -> dict:
         if not bool(((got >= 0) & (got <= 256)).all()):
             raise AssertionError(f"hamming kernel out of range at ({n}, {m})")
         max_err = max(max_err, err)
-        phase("kernel", f"hamming ({n}, {m}): equal to plain (max abs err {err})")
+        phase("kernel", f"hamming ({n}, {m}){' low-entropy words' if low else ''}: equal to "
+                        f"plain (max abs err {err})")
     rows = {}
-    for n, m in PATH_SHAPES:
+    for n, m in HAMMING_TIMED:
         a = torch.from_numpy(random_words(rng, n).view(np.int32)).to(device)
         b = torch.from_numpy(random_words(rng, m).view(np.int32)).to(device)
         t_kernel, t_plain, report = in_turns(lambda: hamming.hamming_matrix(a, b),
                                              lambda: hamming.hamming_matrix_plain(a, b))
         # library yardstick: ±1 int8 bits, (N, 256) x (256, M) -> 256 - 2 * Hamming
-        shifts = torch.arange(32, device=device, dtype=torch.int64)
-        a_pm, b_pm = ((((w.to(torch.int64) & 0xFFFFFFFF)[:, :, None] >> shifts) & 1)
-                      .reshape(w.shape[0], 256).to(torch.int8) * 2 - 1 for w in (a, b))
-        b_pm_t = b_pm.t()   # column-major (256, M), as cuBLASLt takes it
+        a_pm = hamming.pm_bits(a)
+        b_pm_t = hamming.pm_bits(b).t()   # column-major (256, M), as cuBLASLt takes it
         if not torch.equal(torch._int_mm(a_pm, b_pm_t), 256 - 2 * hamming.hamming_matrix(a, b)):
             raise AssertionError(f"_int_mm yardstick != 256 - 2 * hamming at ({n}, {m})")
         t_library = cuda_ms(lambda: torch._int_mm(a_pm, b_pm_t))
         us = launch_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
+        lib_us, lib_kernels = call_device_us(lambda: torch._int_mm(a_pm, b_pm_t))
         bound_ms, bound_by = bound((n + m) * 32 + n * m * 4, int8_ops=2 * 256 * n * m)
         rows[(n, m)] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_library,
-                        "device_us": us, "bound_ms": bound_ms, "bound_by": bound_by}
+                        "device_us": us, "library_device_us": lib_us,
+                        "library_kernels": lib_kernels, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
         phase("kernel", f"hamming ({n}, {m}): {report}; torch._int_mm {t_library:.5f} ms; "
-                        f"device {us_text(us)} a launch (profiler); bound "
-                        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+                        f"device {us_text(us)} a launch, {share}; torch._int_mm device "
+                        f"{us_text(lib_us)} a call ({', '.join(lib_kernels)}) (profiler); "
+                        f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
     return {"max_abs_err": max_err, "rows": rows}
 
 
@@ -455,7 +490,7 @@ def check_two_way(device) -> int:
 
     rng = np.random.RandomState(2)
     for n_batch in TWO_WAY_BATCHES:
-        for n_a, n_b in TWO_WAY_SHAPES:
+        for n_a, n_b in TWO_WAY_SHAPES + ((INIT_SHAPE,) if n_batch == 1 else ()):
             for min_diff in TWO_WAY_MIN_DIFFS:
                 shared = n_batch > 1 and min_diff == 8   # both layouts of desc_a
                 case = two_way_case(rng, n_batch, n_a, n_b, shared)
@@ -647,20 +682,34 @@ def capture_two_way_call(device) -> dict:
     return calls[0]
 
 
-def time_two_way_path(device) -> dict:
-    """Times the fused two-way kernel on the first keyframe event's own
-    inputs: kernel and plain in turns, the two composites it replaces,
-    device time a launch and the bound."""
+def init_case(rng: np.random.RandomState, n: int, m: int) -> dict:
+    """numpy inputs of mono init's `match_two_way` (B = 1): two frames'
+    features, 60 % of the second frame's a few bits away from one of the
+    first's, in another order, 5 % of either side invalid."""
+    a = random_words(rng, n)
+    b = random_words(rng, m)
+    k = int(0.6 * min(n, m))
+    src, dst = rng.permutation(n)[:k], rng.permutation(m)[:k]
+    flips = rng.rand(k, 8, 32) < 0.02
+    b[dst] = a[src] ^ np.packbits(flips, axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    return {"desc_a": a.view(np.int32), "valid_a": rng.rand(1, n) < 0.95,
+            "desc_b": b[None].view(np.int32), "valid_b": rng.rand(1, m) < 0.95}
+
+
+def time_two_way(args: tuple, where: str) -> dict:
+    """Holds the fused two-way kernel exactly against its plain version on
+    `args` (match_two_way's arguments) and times it there: kernel and plain
+    in turns, the two composites it replaces, device time a launch of each
+    of its two kernels and the bound."""
     from mageslam_tpu_torch.ops import hamming, matching
 
-    desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff = capture_two_way_call(device)
+    desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff = args
     n_batch, n_b = desc_b.shape[:2]
     n_a = desc_a.shape[-2]
-    args = (desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff)
     got = matching.match_two_way(*args)
     want = matching.match_two_way_plain(*args)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("two_way_match kernel != plain on the keyframe event's inputs")
+        raise AssertionError(f"two_way_match kernel != plain on {where}")
 
     def composite(distances):
         return [matching.two_way_from_distances(distances(b), valid_a[b], valid_b[b],
@@ -668,14 +717,8 @@ def time_two_way_path(device) -> dict:
                 for b in range(n_batch)]
 
     a_of = (lambda b: desc_a) if desc_a.dim() == 2 else (lambda b: desc_a[b])
-    shifts = torch.arange(32, device=device, dtype=torch.int64)
-
-    def pm_bits(w):
-        return ((((w.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shifts) & 1)
-                .reshape(*w.shape[:-1], 256).to(torch.int8) * 2 - 1)
-
-    a_pm = [pm_bits(a_of(b)) for b in range(n_batch)]
-    b_pm_t = [pm_bits(desc_b[b]).t() for b in range(n_batch)]
+    a_pm = [hamming.pm_bits(a_of(b)) for b in range(n_batch)]
+    b_pm_t = [hamming.pm_bits(desc_b[b]).t() for b in range(n_batch)]
 
     def with_hamming_kernel():
         return composite(lambda b: hamming.hamming_matrix(a_of(b), desc_b[b]))
@@ -686,7 +729,7 @@ def time_two_way_path(device) -> dict:
     for name, fn in (("hamming.cu", with_hamming_kernel), ("torch._int_mm", with_int_mm)):
         out = fn()
         if not all(torch.equal(torch.stack([o[i] for o in out]), got[i]) for i in (0, 1)):
-            raise AssertionError(f"the {name} composite != two_way_match kernel")
+            raise AssertionError(f"the {name} composite != two_way_match kernel on {where}")
     launches_before = hamming.LAUNCHES
     t_kernel, t_plain, report = in_turns(lambda: matching.match_two_way(*args),
                                          lambda: matching.match_two_way_plain(*args))
@@ -700,18 +743,33 @@ def time_two_way_path(device) -> dict:
     # row and a valid column (the others read BIG whatever their bits)
     pairs = int((valid_a.sum(1) * valid_b.sum(1)).sum())
     bound_ms, bound_by = bound(n_bytes, int8_ops=2 * 256 * pairs)
-    phase("kernel", f"two_way_match on the first keyframe event's call B={n_batch} "
-                    f"({n_a}, {n_b}), {int(valid_a.sum())} valid rows, {int(valid_b.sum())} "
-                    f"valid columns, {int((got[0] >= 0).sum())} matched: {report}; composite "
+    share = ("not measured" if us_scan is None or us_gate is None
+             else f"{bound_ms * 1e3 / (us_scan + us_gate):.4f} of the bound")
+    phase("kernel", f"two_way_match on {where} B={n_batch} ({n_a}, {n_b}), "
+                    f"{int(valid_a.sum())} valid rows, {int(valid_b.sum())} valid columns, "
+                    f"{int((got[0] >= 0).sum())} matched: {report}; composite "
                     f"of {n_batch} x (hamming.cu + eager epilogue) {t_ham:.5f} ms, of "
                     f"{n_batch} x (torch._int_mm + eager epilogue) {t_mm:.5f} ms (median of "
-                    f"5 x 50 calls); device {us_text(us_scan)} (scan) + {us_text(us_gate)} (gate) a call "
-                    f"(profiler); bound {bound_ms * 1e3:.3f} us ({bound_by}; {pairs} valid "
-                    f"pairs)")
-    return {"shape": [n_batch, n_a, n_b], "valid_pairs": pairs, "ms": t_kernel, "plain_ms": t_plain,
-            "composite_hamming_kernel_ms": t_ham, "composite_int_mm_ms": t_mm,
-            "device_us_scan": us_scan, "device_us_gate": us_gate, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+                    f"5 x 50 calls); device {us_text(us_scan)} (scan) + {us_text(us_gate)} (gate) "
+                    f"a call (profiler), {share}; bound {bound_ms * 1e3:.3f} us ({bound_by}; "
+                    f"{pairs} valid pairs)")
+    return {"shape": [n_batch, n_a, n_b], "valid_pairs": pairs, "ms": t_kernel,
+            "plain_ms": t_plain, "composite_hamming_kernel_ms": t_ham,
+            "composite_int_mm_ms": t_mm, "device_us_scan": us_scan, "device_us_gate": us_gate,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_two_way_path(device) -> dict:
+    """The fused two-way kernel on the first keyframe event's own inputs."""
+    return time_two_way(tuple(capture_two_way_call(device)), "the first keyframe event's call")
+
+
+def time_two_way_init(device) -> dict:
+    """The fused two-way kernel at mono init's shape (440, 440), B = 1."""
+    case = init_case(np.random.RandomState(3), *INIT_SHAPE)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(case[k])).to(device)
+                 for k in TWO_WAY_ARGS)
+    return time_two_way(args + INIT_GATES, f"mono init's shape {INIT_SHAPE}")
 
 
 def run_map_window(device, frames, first_id: int):
@@ -900,6 +958,7 @@ def main() -> int:
 
     fused_map = time_radius_mapping(device)
     two_way = time_two_way_path(device)
+    two_way_init = time_two_way_init(device)
 
     run_window(device, frames, first)          # warm pass: allocator, caches
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
@@ -957,6 +1016,7 @@ def main() -> int:
          "ms": ham_row["ms"], "plain_ms": ham_row["plain_ms"],
          "bound_ms": ham_row["bound_ms"], "bound_by": ham_row["bound_by"],
          "library_ms": ham_row["library_ms"], "shape": list(PATH_SHAPES[-1]),
+         "device_us": ham_row["device_us"], "library_device_us": ham_row["library_device_us"],
          "rows": {f"{n}x{m}": r for (n, m), r in ham["rows"].items()}},
         {"name": "two_way_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/two_way_match.cu",
@@ -965,10 +1025,12 @@ def main() -> int:
          "ms": two_way["ms"], "plain_ms": two_way["plain_ms"],
          "bound_ms": two_way["bound_ms"], "bound_by": two_way["bound_by"],
          "library_ms": None,
-         "note": "no single PyTorch call computes it; the composites it replaces are timed",
+         "note": "no single PyTorch call computes it; the composites it replaces are timed; "
+                 "top level: the keyframe event's call; init: mono init's shape, B = 1",
          **{k: two_way[k] for k in ("shape", "composite_hamming_kernel_ms",
                                     "composite_int_mm_ms", "valid_pairs", "device_us_scan",
-                                    "device_us_gate")}},
+                                    "device_us_gate")},
+         "init": two_way_init},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

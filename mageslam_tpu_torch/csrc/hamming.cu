@@ -1,23 +1,31 @@
 // All-pairs Hamming distances between two banks of 256-bit rBRIEF
-// descriptors, for Hopper (sm_90a).
+// descriptors, for Hopper (sm_90a), on the int8 tensor cores.
 //
 // Replaces the TPU kernel mageslam_tpu/ops/pallas_kernels.py
 // `hamming_matrix_pallas` (`_hamming_kernel`, `_popcount32`): per pair, XOR
 // of 8 uint32 words, popcount, sum. Output (N, M) int32, values 0..256.
 //
-// What bounds it on this card: at the tracking path's shapes, (1024, 512)
-// and (2048, 512), the kernel reads at most 80 KB of descriptors and writes
-// a 2-4 MB int32 matrix; the arithmetic (8 XOR + 8 __popc per output) is
-// negligible next to the output write and the launch latency. So the design
-// keeps the write coalesced and does nothing clever with the ALUs:
-//   - each block stages a tile of 32 A rows and 32 B rows (32 bytes each) in
-//     shared memory, padded to 9 words a row so the column reads are free of
-//     bank conflicts;
-//   - each thread owns one output column and walks 4 rows of the tile, so a
-//     warp stores 32 consecutive int32 of one output row (128 bytes);
-//   - the kernel masks the ragged edge itself: no host-side padding.
-// Removing the write altogether (fusing the consumer's masked best/second-
-// best reduction) is the follow-on.
+// What bounds it on this card: the int32 output. At (8192, 512), the map's
+// point bank against a frame's feature slots, it writes 16.8 MB (5.0 us at
+// 3.35 TB/s) and reads 0.28 MB. A SIMT design spends 8 __popc an output,
+// and Hopper retires 16 __popc per SM per clock: ~9 us of popcounts there,
+// above the bound. Here the distances come from the tensor cores (hamming_tile.cuh: the ±1 int8
+// product, 256 - 2 * Hamming, IMMA m16n8k32), at about 1.5 integer
+// operations an output for the bit expansion, so the write is left as the
+// only limit:
+//   - a block owns a 64 x 64 output tile, 8 warps of 16 rows x 32 columns,
+//     so that (1024, 512) already spreads over 128 blocks; both operands
+//     (64 + 64 rows of 32 bytes) are staged with 16-byte cp.async (rows
+//     past the edge zero-filled);
+//   - a warp expands its 16 A rows once (32 registers) and runs its 4
+//     column tiles of 8 against them together: 4 independent chains of 8
+//     mma;
+//   - each lane trades two distances with its neighbour (one shuffle) so
+//     that it holds 4 consecutive columns of a row, and stores them with
+//     one 16-byte store: a quad writes 64 contiguous bytes of a row;
+//   - the kernel masks the ragged edge itself (rows past N are not
+//     written; a row whose width M is not a multiple of 4, or the last
+//     columns, are written 4 bytes at a time).
 //
 // Plain C entry point for ctypes; the caller passes PyTorch's current
 // stream. Returns cudaGetLastError() after the launch.
@@ -25,42 +33,92 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hamming_tile.cuh"
+
 namespace {
 
-constexpr int kWords = 8;       // 256 bits
-constexpr int kTileCols = 32;   // B rows (output columns) per block = blockDim.x
-constexpr int kTileRows = 32;   // A rows (output rows) per block
-constexpr int kThreadRows = 8;  // blockDim.y
+using hamming_tile::kWords;
 
-__global__ void __launch_bounds__(kTileCols * kThreadRows)
+constexpr int kRows = 64;           // A rows (output rows) per block
+constexpr int kCols = 64;           // B rows (output columns) per block
+constexpr int kWarpCols = 32;       // columns per warp: 4 tiles of 8
+constexpr int kTiles = kWarpCols / 8;
+constexpr int kThreads = 32 * (kRows / 16) * (kCols / kWarpCols);   // 256
+
+__device__ __forceinline__ void store4(int32_t* out, int n, int m, int row, int col,
+                                       int4 v) {
+  if (row >= n) return;
+  int32_t* p = out + static_cast<size_t>(row) * m + col;
+  if ((m & 3) == 0 && col + 3 < m) {
+    *reinterpret_cast<int4*>(p) = v;
+    return;
+  }
+  if (col < m) p[0] = v.x;
+  if (col + 1 < m) p[1] = v.y;
+  if (col + 2 < m) p[2] = v.z;
+  if (col + 3 < m) p[3] = v.w;
+}
+
+__global__ void __launch_bounds__(kThreads)
 hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                int32_t* __restrict__ out, int n, int m) {
-  __shared__ uint32_t a_s[kTileRows][kWords + 1];
-  __shared__ uint32_t b_s[kTileCols][kWords + 1];
+  __shared__ __align__(16) uint32_t a_s[kRows * kWords];
+  __shared__ __align__(16) uint32_t b_s[kCols * kWords];
 
-  const int row0 = blockIdx.y * kTileRows;
-  const int col0 = blockIdx.x * kTileCols;
-  // 256 threads stage 32 rows x 8 words of each operand, one word each
-  const int t = threadIdx.y * kTileCols + threadIdx.x;
-  const int r = t / kWords;
-  const int w = t % kWords;
-  a_s[r][w] = (row0 + r < n) ? a[static_cast<size_t>(row0 + r) * kWords + w] : 0u;
-  b_s[r][w] = (col0 + r < m) ? b[static_cast<size_t>(col0 + r) * kWords + w] : 0u;
+  const int row0 = blockIdx.y * kRows;
+  const int col0 = blockIdx.x * kCols;
+  // 16-byte chunks: 2 a descriptor; (64 + 64) * 2 = 256, one a thread
+  for (int c = threadIdx.x; c < 2 * (kRows + kCols); c += kThreads) {
+    const bool is_a = c < 2 * kRows;
+    const int r = (is_a ? c : c - 2 * kRows) >> 1;
+    const int limit = is_a ? n - row0 : m - col0;
+    const uint32_t* src = is_a ? a + static_cast<size_t>(row0) * kWords
+                               : b + static_cast<size_t>(col0) * kWords;
+    uint32_t* dst = is_a ? a_s : b_s;
+    const int rc = min(r, limit - 1);       // a valid address even when not read
+    hamming_tile::cp_async16(dst + r * kWords + (c & 1) * 4,
+                             src + static_cast<size_t>(rc) * kWords + (c & 1) * 4, r < limit);
+  }
+  hamming_tile::cp_async_commit();
+  hamming_tile::cp_async_wait<0>();
   __syncthreads();
 
-  const int col = col0 + threadIdx.x;
-  if (col >= m) return;
-  uint32_t bw[kWords];
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) bw[k] = b_s[threadIdx.x][k];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp >> 1) * 16;          // the warp's first row in the tile
+  const int wc = (warp & 1) * kWarpCols;    // and its first column
 
-  for (int i = threadIdx.y; i < kTileRows; i += kThreadRows) {
-    const int row = row0 + i;
-    if (row >= n) break;
-    int d = 0;
+  hamming_tile::RowsA rows;
+  hamming_tile::expand_rows(rows, hamming_tile::lane_words(a_s, wr + g, lane),
+                            hamming_tile::lane_words(a_s, wr + g + 8, lane));
+
+  uint2 cols[kTiles];
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) d += __popc(a_s[i][k] ^ bw[k]);
-    out[static_cast<size_t>(row) * m + col] = d;
+  for (int j = 0; j < kTiles; ++j) cols[j] = hamming_tile::lane_words(b_s, wc + 8 * j + g, lane);
+  int d[kTiles][4];
+  hamming_tile::distances(d, rows, cols);
+
+  const bool odd = t & 1;
+#pragma unroll
+  for (int j = 0; j < kTiles; j += 2) {   // two column tiles: 16 columns
+    // even t keeps tile j's columns 2t, 2t + 1 and takes 2t + 2, 2t + 3 from
+    // lane t + 1; odd t gives those away and takes tile j + 1's columns
+    // 2t - 2, 2t - 1 from lane t - 1: each lane then holds 4 consecutive
+    // columns of rows g and g + 8
+    const int* d0 = d[j];
+    const int* d1 = d[j + 1];
+    const int s0 = odd ? d0[0] : d1[0], s1 = odd ? d0[1] : d1[1];
+    const int s2 = odd ? d0[2] : d1[2], s3 = odd ? d0[3] : d1[3];
+    const int r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const int r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const int r2 = __shfl_xor_sync(0xffffffffu, s2, 1);
+    const int r3 = __shfl_xor_sync(0xffffffffu, s3, 1);
+    const int4 top = odd ? make_int4(r0, r1, d1[0], d1[1]) : make_int4(d0[0], d0[1], r0, r1);
+    const int4 bottom = odd ? make_int4(r2, r3, d1[2], d1[3]) : make_int4(d0[2], d0[3], r2, r3);
+    const int col = col0 + wc + 8 * j + (odd ? 8 + 2 * (t - 1) : 2 * t);
+    store4(out, n, m, row0 + wr + g, col, top);
+    store4(out, n, m, row0 + wr + g + 8, col, bottom);
   }
 }
 
@@ -69,9 +127,8 @@ hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 extern "C" int mageslam_hamming_matrix(const void* a, const void* b, void* out,
                                        int n, int m, void* stream) {
   if (n <= 0 || m <= 0) return 0;
-  const dim3 block(kTileCols, kThreadRows);
-  const dim3 grid((m + kTileCols - 1) / kTileCols, (n + kTileRows - 1) / kTileRows);
-  hamming_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((m + kCols - 1) / kCols, (n + kRows - 1) / kRows);
+  hamming_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<int32_t*>(out), n, m);
   return static_cast<int>(cudaGetLastError());

@@ -2,9 +2,11 @@
 
 Every `.cu` file under `mageslam_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into one shared library with a plain C interface, under
-`mageslam_tpu_torch/_build/`. The library's name carries a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing file. A missing `nvcc` or a failed build raises.
+`mageslam_tpu_torch/_build/`; the `.cuh` headers there (`hamming_tile.cuh`,
+the tensor-core distance tile) are included by them. The library's name
+carries a hash of the sources, headers and flags, so an edited file
+rebuilds and an unchanged tree loads the existing library. A missing `nvcc`
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def sources() -> list[str]:
+    """The `.cu` and `.cuh` files the library is built from."""
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith(".cu"))
+                  if f.endswith((".cu", ".cuh")))
 
 
 def _nvcc() -> str:
@@ -55,7 +58,8 @@ def build() -> tuple[str, float, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
+    units = [s for s in sources() if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *units],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"

@@ -149,7 +149,7 @@ def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
             valid_b.data_ptr(), scratch.data_ptr(), out_idx.data_ptr(),
             out_dist.data_ptr(), 0 if shared_a else n_a, n_batch, n_a, n_b,
             int(max_hamming), int(min_diff),
-            torch.cuda.current_stream(device).cuda_stream)
+            torch._C._cuda_getCurrentRawStream(device.index))
         if rc != 0:
             raise RuntimeError(f"two_way_match kernel launch failed: cudaError {rc}")
         TWO_WAY_LAUNCHES += 1

@@ -41,7 +41,12 @@ def words(rng, rows, device):
     return torch.from_numpy(w.view(np.int32).copy()).to(device)
 
 
-@pytest.mark.parametrize("n,m", [(1, 1), (129, 257), (1000, 440), (2048, 512)])
+# both sides of the tiles' edges: 16-row mma tiles, 64-row and 128-column
+# blocks, 64-query blocks of the two-way scan
+TILE_EDGES = (1, 15, 17, 63, 64, 65, 127, 129)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (129, 257), (1000, 440), (2048, 512), (8192, 512)])
 def test_kernel_matches_plain(cuda_device, n, m):
     rng = np.random.RandomState(n * 7919 + m)
     a, b = words(rng, n, cuda_device), words(rng, m, cuda_device)
@@ -52,15 +57,34 @@ def test_kernel_matches_plain(cuda_device, n, m):
     torch.testing.assert_close(got, hamming.hamming_matrix_plain(a, b), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n", TILE_EDGES)
+def test_kernel_at_tile_edges(cuda_device, n):
+    rng = np.random.RandomState(n)
+    a = words(rng, n, cuda_device)
+    for m in TILE_EDGES:
+        b = words(rng, m, cuda_device)
+        torch.testing.assert_close(hamming.hamming_matrix(a, b),
+                                   hamming.hamming_matrix_plain(a, b), rtol=0, atol=0)
+
+
 def test_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     rng = np.random.RandomState(1)
     a = words(rng, 64, cuda_device)
-    with pytest.raises(ValueError):
+    before = hamming.LAUNCHES
+    with pytest.raises(ValueError):                       # device
         hamming.hamming_matrix(a, a.cpu())
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):                        # dtype
         hamming.hamming_matrix(a, a.to(torch.int64))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):                       # not contiguous
         hamming.hamming_matrix(a, words(rng, 64, cuda_device)[::2])
+    with pytest.raises(ValueError):                       # shape: 4 words a row
+        hamming.hamming_matrix(a.reshape(128, 4), a)
+    with pytest.raises(ValueError):                       # shape: 3-D
+        hamming.hamming_matrix(a, a[None])
+    flat = a.reshape(-1)
+    with pytest.raises(ValueError):                       # not 16-byte aligned
+        hamming.hamming_matrix(torch.cat([flat, flat[:1]])[1:].reshape(64, 8), a)
+    assert hamming.LAUNCHES == before
 
 
 @pytest.mark.parametrize("n_query,n_target", chip_smoke.RADIUS_SHAPES)
@@ -141,6 +165,84 @@ def test_two_way_kernel_matches_plain(cuda_device, n_batch, n_a, n_b):
             for g, w in zip(got, want):
                 assert g.shape == (n_batch, n_a)
                 torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def two_way_equal_to_plain(args, max_hamming, min_diff):
+    before = matching.TWO_WAY_LAUNCHES
+    got = matching.match_two_way(*args, max_hamming, min_diff)
+    torch.cuda.synchronize()
+    assert matching.TWO_WAY_LAUNCHES == before + 1
+    want = matching.match_two_way_plain(*args, max_hamming, min_diff)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("n_a", TILE_EDGES)
+def test_two_way_at_tile_edges(cuda_device, n_a):
+    rng = np.random.RandomState(100 + n_a)
+    for n_b in TILE_EDGES:
+        case = chip_smoke.two_way_case(rng, 2, n_a, n_b, False)
+        args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(cuda_device)
+                for k in chip_smoke.TWO_WAY_ARGS]
+        two_way_equal_to_plain(args, 6, 1)
+
+
+def eight_bits(rng):
+    """(8,) uint32 words with 8 of their 256 bits set."""
+    bits = np.zeros(256, np.uint8)
+    bits[rng.permutation(256)[:8]] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def test_two_way_whole_row_and_column_tied(cuda_device):
+    """Row 0 of A is at distance 8 from every column, and column 0 of B at
+    distance 8 from every row: the first index must win both ways."""
+    rng = np.random.RandomState(8)
+    n = 300
+    col0 = eight_bits(rng)
+    a = np.stack([np.zeros(8, np.uint32)] + [col0 ^ eight_bits(rng) for _ in range(n - 1)])
+    b = np.stack([col0] + [eight_bits(rng) for _ in range(n - 1)])
+    valid_a, valid_b = np.ones((1, n), bool), np.ones((1, n), bool)
+    valid_b[0, rng.permutation(np.arange(1, n))[:20]] = False
+    args = [torch.from_numpy(x).to(cuda_device) for x in
+            (a.view(np.int32), valid_a, b[None].view(np.int32).copy(), valid_b)]
+    for min_diff in (0, 1):
+        two_way_equal_to_plain(args, 20, min_diff)
+
+
+def test_two_way_ties_across_chunk_and_tile_edges(cuda_device):
+    """Equal best distances on either side of the scan's 256-target chunk
+    edge and of its 8-column tiles: the lower index wins."""
+    n_b = 600
+    q = np.zeros((4, 8), np.uint32)
+    t = np.full((n_b, 8), 0xFFFFFFFF, np.uint32)         # distance 256 from a zero row
+    pairs = ((255, 256), (7, 8), (511, 512), (300, 599))
+    for r, (lo, hi) in enumerate(pairs):
+        q[r, 0] = r + 1
+        t[lo] = t[hi] = q[r]
+        t[lo, 0] = t[hi, 0] = q[r, 0] ^ (1 << 9)          # both at distance 1 from query r
+    valid_b = np.ones((1, n_b), bool)
+    args = [torch.from_numpy(x).to(cuda_device) for x in
+            (q.view(np.int32), np.ones((1, 4), bool), t[None].view(np.int32).copy(), valid_b)]
+    got = two_way_equal_to_plain(args, 20, 0)
+    # each tied pair's columns both pick their query row, so the row's best is
+    # the lower index; with min_diff 0 the forward gate passes
+    assert got[0][0].tolist() == [lo for lo, _ in pairs]
+    valid_b[0, [255, 7, 511, 300]] = False                # now the higher index is alone
+    args[3] = torch.from_numpy(valid_b).to(cuda_device)
+    got = two_way_equal_to_plain(args, 20, 0)
+    assert got[0][0].tolist() == [hi for _, hi in pairs]
+
+
+def test_two_way_every_target_invalid(cuda_device):
+    rng = np.random.RandomState(10)
+    case = chip_smoke.two_way_case(rng, 3, 130, 300, False)
+    case["valid_b"][:] = False
+    args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(cuda_device)
+            for k in chip_smoke.TWO_WAY_ARGS]
+    got = two_way_equal_to_plain(args, 256, 0)
+    assert (got[0] == -1).all() and (got[1] == -1).all()
 
 
 def test_two_way_unbatched_and_full_range_words(cuda_device):

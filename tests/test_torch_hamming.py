@@ -104,3 +104,25 @@ def test_cuda_tensor_never_takes_the_plain_path():
     a = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         hamming.hamming_matrix(a, torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+
+
+def test_tile_bit_order_is_a_permutation():
+    assert sorted(hamming.tile_bit_order().tolist()) == list(range(256))
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (33, 17), (64, 129)])
+def test_pm_bits_product_is_the_hamming_matrix(rng, n, m):
+    """The tensor-core tile's ±1 int8 expansion, in its K order: the dot
+    product is 256 - 2 * Hamming, equal to the plain version and to JAX."""
+    a, b = full_range_words(rng, n), full_range_words(rng, m)
+    pa, pb = hamming.pm_bits(as_torch(a)), hamming.pm_bits(as_torch(b))
+    assert pa.dtype == torch.int8 and pa.shape == (n, 256)
+    assert set(pa.unique().tolist()) <= {-1, 1}
+    dot = pa.to(torch.int32) @ pb.to(torch.int32).T
+    got = ((256 - dot) // 2).numpy()
+    np.testing.assert_array_equal(got, hamming.hamming_matrix_plain(as_torch(a), as_torch(b)).numpy())
+    # JAX at one padded shape for every case: one compile
+    pad_a, pad_b = np.zeros((64, 8), np.uint32), np.zeros((129, 8), np.uint32)
+    pad_a[:n], pad_b[:m] = a, b
+    want = jmatch.hamming_matrix(jnp.asarray(pad_a), jnp.asarray(pad_b), False)
+    np.testing.assert_array_equal(got, np.asarray(want)[:n, :m])

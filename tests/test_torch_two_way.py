@@ -112,3 +112,107 @@ def test_empty_side_matches_nothing(n_a, n_b):
     a, va, b, vb = make_case(3, 2, n_a, n_b, True)
     idx, dist = matching.match_two_way(*torch_args(a, va, b, vb), 45, 1)
     assert idx.shape == (2, n_a) and (idx == -1).all() and (dist == -1).all()
+
+
+def popcount_matrix(a, b):
+    """(N, M) Hamming distances of uint32 (N, 8) and (M, 8) words, numpy."""
+    x = (a[:, None, :] ^ b[None, :, :]).view(np.uint8)
+    return np.unpackbits(x, axis=-1).sum(-1).astype(np.int64)
+
+
+def merge(run, other):
+    """The kernel's merge of two running (best, idx, second) over disjoint
+    columns: lower distance, then lower index; second = min(winner's second,
+    loser's best)."""
+    (b, i, s), (ob, oi, os_) = run, other
+    take = (ob < b) | ((ob == b) & (oi < i))
+    return (np.where(take, ob, b), np.where(take, oi, i),
+            np.minimum(np.where(take, os_, s), np.where(take, b, ob)))
+
+
+def scan_model(q_desc, q_valid, t_desc, t_valid, max_hamming, chunk=256, splits=4):
+    """The scan kernel's order of work for one direction, in numpy: chunks
+    of `chunk` targets whose valid ones are compacted in index order;
+    8-column tiles dealt in turn to the `splits` warps of a row group; lane
+    t of a warp sees columns 2t and 2t + 1 of each of its tiles, in index
+    order, keeping (best, idx, second) (a later equal distance becomes the
+    second); the quad's lanes merge (xor 1, then xor 2), then warp 0 merges
+    the others in order. Returns the records (idx, best, second) per query
+    row."""
+    big = matching.BIG
+    d = popcount_matrix(q_desc, t_desc)
+    d = np.where(q_valid[:, None] & (d <= max_hamming), d, big)
+    n_q = d.shape[0]
+    state = {(h, t): (np.full(n_q, big), np.zeros(n_q, np.int64), np.full(n_q, big))
+             for h in range(splits) for t in range(4)}
+    for base in range(0, t_desc.shape[0], chunk):
+        cols = base + np.flatnonzero(t_valid[base:base + chunk])    # compacted, in order
+        for tile in range((cols.size + 7) // 8):
+            for t in range(4):
+                for i in range(2):
+                    k = 8 * tile + 2 * t + i
+                    if k >= cols.size:
+                        continue
+                    b, j, s = state[(tile % splits, t)]
+                    dk = d[:, cols[k]]
+                    better = dk < b
+                    state[(tile % splits, t)] = (np.where(better, dk, b),
+                                            np.where(better, cols[k], j),
+                                            np.where(better, b, np.minimum(s, dk)))
+    warps = []
+    for h in range(splits):
+        lanes = [state[(h, t)] for t in range(4)]
+        lanes = [merge(lanes[t], lanes[t ^ 1]) for t in range(4)]
+        lanes = [merge(lanes[t], lanes[t ^ 2]) for t in range(4)]
+        warps.append(lanes[0])
+    run = warps[0]
+    for other in warps[1:]:
+        run = merge(run, other)
+    best, idx, second = run
+    return idx, best, second
+
+
+def gate_model(fwd, bwd, min_diff):
+    big = matching.BIG
+
+    def side_ok(r):
+        return (r[1] < big) & ((r[2] >= big) | (r[2] - r[1] >= min_diff))
+
+    col = fwd[0]
+    ok = side_ok(fwd) & side_ok(bwd)[col] & (bwd[0][col] == np.arange(col.size))
+    return np.where(ok, col, -1), np.where(ok, fwd[1], -1)
+
+
+@pytest.mark.parametrize("n_a,n_b,chunk,low_entropy", [
+    (33, 530, 256, True),      # chunk boundaries at 256 and 512
+    (129, 65, 16, True),       # many small chunks: ties across their edges
+    (40, 300, 8, False),       # one tile a chunk, real matches
+])
+def test_scan_model_equals_plain_and_jax(n_a, n_b, chunk, low_entropy):
+    """The kernel's compaction, column split and merges give the plain
+    version's records and matches: held against `_best_and_second` on the
+    masked matrix and against JAX `match_two_way`."""
+    a, va, b, vb = make_case(n_a + n_b + chunk, 1, n_a, n_b, low_entropy, valid_share=0.5)
+    a, va, b, vb = a[0], va[0], b[0], vb[0]
+    max_hamming, min_diff = (6, 1) if low_entropy else (45, 8)
+    fwd = scan_model(a, va, b, vb, max_hamming, chunk)
+    bwd = scan_model(b, vb, a, va, max_hamming, chunk)
+    d = torch.from_numpy(popcount_matrix(a, b).astype(np.int32))
+    d = torch.where(torch.from_numpy(va[:, None] & vb[None, :]) & (d <= max_hamming), d,
+                    matching.BIG)
+    for got, dist in ((fwd, d), (bwd, d.T.contiguous())):
+        want = matching._best_and_second(dist)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy())
+    idx, dist_out = gate_model(fwd, bwd, min_diff)
+    # JAX at one padded shape for every case (one compile): the padding rows
+    # and columns are invalid, so they match nothing and change no match
+    pad = [np.zeros((1, 129, 8), np.uint32), np.zeros((1, 129), bool),
+           np.zeros((1, 530, 8), np.uint32), np.zeros((1, 530), bool)]
+    for p, x in zip(pad, (a, va, b, vb)):
+        p[0, :x.shape[0]] = x
+    j_idx, j_dist = jax_loop(*pad, max_hamming, min_diff)
+    np.testing.assert_array_equal(idx, j_idx[0, :n_a])
+    np.testing.assert_array_equal(dist_out, j_dist[0, :n_a])
+    if low_entropy:     # the case reaches ties at best in both directions
+        assert (fwd[2] == fwd[1]).any() and (bwd[2] == bwd[1]).any()
