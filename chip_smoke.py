@@ -13,8 +13,8 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    - the standalone Hamming kernel (`csrc/hamming.cu`, on the tensor cores
      through `csrc/hamming_tile.cuh`) on full-range 32-bit words at
      KERNEL_SHAPES, the full point bank (8192, 512) and BoW's word
-     assignment (440, 64), and on low-entropy words; timed at the tracking
-     shapes and at (8192, 512) beside `torch._int_mm` of the ±1 int8 bits
+     assignment (440, 64), (1024, 64) and (8192, 64), and on low-entropy
+     words; timed at those shapes beside `torch._int_mm` of the ±1 int8 bits
      (256 - 2 * Hamming), the library yardstick, whose device time a call
      is read from the profiler too;
    - the fused radius-match kernel (`csrc/radius_match.cu`) at S in {1, 3}
@@ -43,8 +43,10 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    flag, pose R and t within 1e-3, tracked count within 3. In that run the
    fused kernel must launch exactly twice a frame (cascade, track-local-map),
    plus the mapping step's launches on the window's one keyframe (its last
-   frame), and the standalone Hamming kernel never. Then torch.profiler traces 8
-   frames for the device events and device time per frame.
+   frame), and the standalone Hamming kernel once a mapped keyframe (its
+   bag-of-words add). The index after frame 54 must equal the JAX
+   session's (tests/data/torch_port_bench640_bow.npz). Then torch.profiler
+   traces 8 frames for the device events and device time per frame.
 5. Mapping event: the first keyframe's mapping step (runtime/mapping_step.py)
    on the card from the committed JAX state just before it
    (tests/data/torch_port_bench640_map.npz), held against the JAX map after
@@ -61,7 +63,31 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    differing mask entries are reported, not hidden. Per frame the launch
    counts must be 2 fused radius-match launches without a keyframe, and on
    a keyframe 8 radius-match (2 tracking, 1 loop-closure match, 5
-   re-association) and 1 two-way match; the standalone Hamming kernel never.
+   re-association), 1 two-way match and 1 standalone Hamming launch (the
+   keyframe's bag-of-words add). The index after each event must equal the
+   JAX session's.
+7. From frame 0: `SlamSession(golden_path_settings(), cam, 640, 480)` on the
+   card with no snapshot runs frames 0-54 through `process_frame`: mono init
+   (anchor, accumulate, attempts, third-frame check, adoption), the
+   vocabulary retrain, tracking and mapping. Its random draws replay the
+   JAX session's (tests/data/torch_port_bench640_init.npz). Held against
+   the JAX session: the same anchor, attempt and adoption frames; the
+   adopted pose's R within 1e-3 and its t within 1e-3 once scaled by the
+   ratio of the two map scales (the init BA leaves the scale where float
+   noise puts it: PERF.md), that ratio within 5 %; point_valid with at most
+   POINT_VALID_BOUND entries differing; the index's anchors exact and idf
+   within 1e-6 after adoption and after the retrain; every frame's state,
+   keyframe flag, R and scaled t within 1e-3, tracked count within 3 (the
+   init fixture has frames 0-30, the f30 fixture's ref_* 31-54). Launches
+   are asserted for each frame class (anchor, accumulate, attempt,
+   adoption, retrain, tracked, keyframe). Every two-way call of init and
+   every Hamming call of the index is held exactly against its plain
+   version, and each Hamming shape of the path and the init pair match are
+   timed. An attempt, the adoption and the retrain are timed (wall) and
+   traced (device events, device ms). Then a session with its own
+   generator (no replay) must initialise within the init window and track
+   every frame to 54; its adoption frame and pose are reported, not
+   compared.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -82,6 +108,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
 MAP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
+BOW_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_bow.npz")
+INIT_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz")
 CAM = (520.0, 520.0, 320.0, 240.0)
 WIDTH, HEIGHT = 640, 480
 DT = 0.033
@@ -89,7 +117,8 @@ KERNEL_SHAPES = ((1, 1), (129, 257), (1000, 440), (1024, 512), (2048, 512))
 PATH_SHAPES = ((1024, 512), (2048, 512))   # guided cascade, track-local-map
 BANK_SHAPE = (8192, 512)   # the full point bank against a frame's feature slots
 BOW_SHAPE = (440, 64)      # a frame's features against a vocabulary level's words
-HAMMING_TIMED = PATH_SHAPES + (BANK_SHAPE,)
+BOW_SHAPES = ((1024, 64), (8192, 64))   # the adoption's pool; a bank-size pool
+HAMMING_TIMED = PATH_SHAPES + (BANK_SHAPE,) + BOW_SHAPES
 RADIUS_SHAPES = ((1, 1), (129, 257), (512, 512), (1024, 512), (2048, 512), (700, 3000))
 # (stages, Q, T) of the radius matches of a tracked frame and of a keyframe event
 RADIUS_CALLS_TRACKED = ((3, 1024, 512), (1, 2048, 512))
@@ -107,7 +136,21 @@ MAP_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
 MAP_REPEATS = 5
 # kernel launches of one frame: (radius_match, two_way_match, hamming)
 LAUNCHES_TRACKED = (2, 0, 0)
-LAUNCHES_KEYFRAME = (8, 1, 0)
+LAUNCHES_KEYFRAME = (8, 1, 1)      # + the mapping step's and the index add's
+LAUNCHES_MAPPING_STEP = (6, 1, 0)  # the mapping step alone (phase 5)
+# from frame 0, by frame class; parts that add up where a frame is several
+LAUNCHES_ANCHOR = (0, 0, 0)
+LAUNCHES_ACCUMULATE = (0, 1, 0)    # the anchor's covisibility counter
+LAUNCHES_PAIR = (0, 1, 0)          # try_initialize_pair's match (an attempt)
+LAUNCHES_THIRD = (0, 1, 0)         # validate_third_frame's match
+LAUNCHES_ADOPTION = (0, 0, 15)     # 12 k-medoid iterations, idf, 2 keyframe adds
+LAUNCHES_RETRAIN = (0, 0, 14)      # 12 iterations, idf, all keyframes' histograms
+INIT_LAST = 54                     # frames 0..INIT_LAST from frame 0
+INIT_PROFILE_LAST = 14             # the traced pass runs to the retrain
+SCALE_TOL = 0.05                   # |s_jax / s_port - 1| at adoption
+POINT_VALID_BOUND = 6              # of ~290 adopted points: 2 %
+IDF_ATOL = 1e-6
+MAX_INIT_MS = 330                  # golden MaxInitializationIntervalMilliseconds
 TRACKED_TOL = 3
 PROFILE_FRAMES = 8
 # NVIDIA H100 SXM data sheet (dense): HBM rate, int8 tensor-core rate (the
@@ -292,7 +335,7 @@ def check_hamming(device) -> dict:
 
     rng = np.random.RandomState(0)
     max_err = 0
-    cases = [(n, m, False) for n, m in KERNEL_SHAPES + (BANK_SHAPE, BOW_SHAPE)]
+    cases = [(n, m, False) for n, m in KERNEL_SHAPES + (BANK_SHAPE, BOW_SHAPE) + BOW_SHAPES]
     cases += [(1000, 440, True), (BANK_SHAPE[0], BANK_SHAPE[1], True)]
     for n, m, low in cases:
         if low:   # few distinct words: equal rows and columns, distances 0 and repeats
@@ -316,27 +359,38 @@ def check_hamming(device) -> dict:
     for n, m in HAMMING_TIMED:
         a = torch.from_numpy(random_words(rng, n).view(np.int32)).to(device)
         b = torch.from_numpy(random_words(rng, m).view(np.int32)).to(device)
-        t_kernel, t_plain, report = in_turns(lambda: hamming.hamming_matrix(a, b),
-                                             lambda: hamming.hamming_matrix_plain(a, b))
-        # library yardstick: ±1 int8 bits, (N, 256) x (256, M) -> 256 - 2 * Hamming
-        a_pm = hamming.pm_bits(a)
-        b_pm_t = hamming.pm_bits(b).t()   # column-major (256, M), as cuBLASLt takes it
-        if not torch.equal(torch._int_mm(a_pm, b_pm_t), 256 - 2 * hamming.hamming_matrix(a, b)):
-            raise AssertionError(f"_int_mm yardstick != 256 - 2 * hamming at ({n}, {m})")
-        t_library = cuda_ms(lambda: torch._int_mm(a_pm, b_pm_t))
-        us = launch_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
-        lib_us, lib_kernels = call_device_us(lambda: torch._int_mm(a_pm, b_pm_t))
-        bound_ms, bound_by = bound((n + m) * 32 + n * m * 4, int8_ops=2 * 256 * n * m)
-        rows[(n, m)] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_library,
-                        "device_us": us, "library_device_us": lib_us,
-                        "library_kernels": lib_kernels, "bound_ms": bound_ms,
-                        "bound_by": bound_by}
-        share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
-        phase("kernel", f"hamming ({n}, {m}): {report}; torch._int_mm {t_library:.5f} ms; "
-                        f"device {us_text(us)} a launch, {share}; torch._int_mm device "
-                        f"{us_text(lib_us)} a call ({', '.join(lib_kernels)}) (profiler); "
-                        f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        rows[(n, m)] = time_hamming(a, b, f"({n}, {m})")
     return {"max_abs_err": max_err, "rows": rows}
+
+
+def time_hamming(a: torch.Tensor, b: torch.Tensor, where: str) -> dict:
+    """The standalone Hamming kernel on (a, b): kernel and plain in turns,
+    `torch._int_mm` of the ±1 bits beside it, device time a launch of each,
+    and the bound."""
+    from mageslam_tpu_torch.ops import hamming
+
+    n, m = a.shape[0], b.shape[0]
+    launches_before = hamming.LAUNCHES
+    t_kernel, t_plain, report = in_turns(lambda: hamming.hamming_matrix(a, b),
+                                         lambda: hamming.hamming_matrix_plain(a, b))
+    # library yardstick: ±1 int8 bits, (N, 256) x (256, M) -> 256 - 2 * Hamming
+    a_pm = hamming.pm_bits(a)
+    b_pm_t = hamming.pm_bits(b).t()   # column-major (256, M), as cuBLASLt takes it
+    if not torch.equal(torch._int_mm(a_pm, b_pm_t), 256 - 2 * hamming.hamming_matrix(a, b)):
+        raise AssertionError(f"_int_mm yardstick != 256 - 2 * hamming at {where}")
+    t_library = cuda_ms(lambda: torch._int_mm(a_pm, b_pm_t))
+    us = launch_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
+    lib_us, lib_kernels = call_device_us(lambda: torch._int_mm(a_pm, b_pm_t))
+    hamming.LAUNCHES = launches_before      # timing launches are not a path's
+    bound_ms, bound_by = bound((n + m) * 32 + n * m * 4, int8_ops=2 * 256 * n * m)
+    share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
+    phase("kernel", f"hamming {where}: {report}; torch._int_mm {t_library:.5f} ms; "
+                    f"device {us_text(us)} a launch, {share}; torch._int_mm device "
+                    f"{us_text(lib_us)} a call ({', '.join(lib_kernels)}) (profiler); "
+                    f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return {"shape": [n, m], "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_library,
+            "device_us": us, "library_device_us": lib_us, "library_kernels": lib_kernels,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _to_device(case: dict, device) -> dict:
@@ -598,7 +652,7 @@ def check_map_event(device, card: str) -> None:
         raise AssertionError(f"mapping event: kf_pose err {pose_err:.3g} (limit "
                              f"{MAP_POSE_ATOL}), mp_pos err {point_err:.3g} (limit "
                              f"{MAP_POINT_ATOL})")
-    expected = tuple(k - t for k, t in zip(LAUNCHES_KEYFRAME, LAUNCHES_TRACKED))
+    expected = LAUNCHES_MAPPING_STEP
     if launches != expected:
         raise AssertionError(f"mapping event launched (radius_match, two_way_match, "
                              f"hamming) {launches}, expected {expected}")
@@ -782,7 +836,7 @@ def run_map_window(device, frames, first_id: int):
 
     sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM,
                                          WIDTH, HEIGHT, device)
-    map_ms, maps = [], []
+    map_ms, maps, bows = [], [], []
     inner = sess._insert_keyframe_and_map
 
     def timed(frame):
@@ -792,6 +846,7 @@ def run_map_window(device, frames, first_id: int):
         torch.cuda.synchronize()
         map_ms.append((time.perf_counter() - t0) * 1e3)
         maps.append(sess.map)
+        bows.append(sess.bow)
 
     sess._insert_keyframe_and_map = timed
     results, ms, launches = [], [], []
@@ -804,7 +859,7 @@ def run_map_window(device, frames, first_id: int):
         ms.append((time.perf_counter() - t0) * 1e3)
         after = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
         launches.append(tuple(a - b for a, b in zip(after, before)))
-    return results, ms, launches, map_ms, maps
+    return results, ms, launches, map_ms, maps, bows
 
 
 def check_map_window(device, card: str) -> dict:
@@ -817,7 +872,7 @@ def check_map_window(device, card: str) -> dict:
     frames = render_window(first, first + len(ref["ref_frame_id"]))
     run_map_window(device, frames, first)      # warm pass
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
-    results, ms, launches, map_ms, maps = run_map_window(device, frames, first)
+    results, ms, launches, map_ms, maps, bows = run_map_window(device, frames, first)
     totals = {"radius_match": matching.LAUNCHES, "two_way_match": matching.TWO_WAY_LAUNCHES,
               "hamming_matrix": hamming.LAUNCHES}
     pose_err, count_err = check_window(results, ref)
@@ -837,7 +892,8 @@ def check_map_window(device, card: str) -> dict:
             raise AssertionError(f"the map after the first event (frame {kf[0]}) differs "
                                  f"from the JAX map: {diffs}")
         phase("window", f"map after event {j} (frame {kf[j]}): differing mask entries "
-                        f"against the JAX map {diffs}")
+                        f"against the JAX map {diffs}; bag-of-words index "
+                        f"{check_bow_event(bows[j], j)}")
     tracked_ms = [t for t, r in zip(ms, results) if not r.is_keyframe]
     phase("window", f"frames {first}-{first + len(frames) - 1}: all TRACKING, keyframes "
                     f"mapped at {kf} as in the JAX session, max pose err {pose_err:.3g} "
@@ -852,6 +908,36 @@ def check_map_window(device, card: str) -> dict:
                     f"{statistics.median(map_ms):.3f} ms, min {min(map_ms):.3f}, max "
                     f"{max(map_ms):.3f} over {len(map_ms)} events; after one warm pass; {card}")
     return totals
+
+
+def bow_errors(got, want: dict) -> tuple[int, int, float, float]:
+    """(differing anchor words, differing kf_has, idf err, kf_vectors err) of
+    the port's index against the JAX index's leaves {field: array}."""
+    from mageslam_tpu_torch import interop
+
+    g = interop.to_numpy(got)
+    return (int((g["anchors"] != want["anchors"]).sum()),
+            int((g["kf_has"] != want["kf_has"]).sum()),
+            float(np.abs(g["idf"] - want["idf"]).max()),
+            float(np.abs(g["kf_vectors"] - want["kf_vectors"]).max()))
+
+
+def check_bow_event(got, j: int) -> str:
+    """The port's index after the window's event j against the JAX
+    session's: anchors and kf_has exact, idf and kf_vectors within 1e-6."""
+    from mageslam_tpu_torch import interop
+    from mageslam_tpu_torch.bow.index import BowIndex
+
+    with np.load(BOW_FIXTURE) as z:
+        want = interop.to_numpy(interop.unflatten(BowIndex, f"ev{j}_post_bow",
+                                                  {k: z[k] for k in z.files}, "cpu"))
+    anchors, has, idf, vec = bow_errors(got, want)
+    if anchors or has or idf > IDF_ATOL or vec > IDF_ATOL:
+        raise AssertionError(f"bag-of-words index after event {j}: {anchors} anchor words "
+                             f"and {has} kf_has entries differ, idf err {idf:.3g}, "
+                             f"kf_vectors err {vec:.3g} (limit {IDF_ATOL})")
+    return (f"equal to the JAX index ({int(want['kf_has'].sum())} keyframes; idf err "
+            f"{idf:.3g}, kf_vectors err {vec:.3g}, limit {IDF_ATOL})")
 
 
 def render_window(start: int, stop: int) -> list[np.ndarray]:
@@ -876,7 +962,7 @@ def run_window(device, frames, first_id: int):
         results.append(sess.process_frame(img, i * DT, i))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    return results, ms
+    return results, ms, sess.bow
 
 
 def check_window(results, ref) -> tuple[float, int]:
@@ -926,6 +1012,400 @@ def profile_window(device, frames, first_id: int, card: str) -> None:
                      f"each; {card}")
 
 
+class CountingDraws:
+    """A session's draw source that counts the draws of each kind."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.counts = {"init": 0, "pnp": 0, "vocab": 0}
+
+    def gumbel(self, kind: str, shape):
+        self.counts[kind] += 1
+        return self.inner.gumbel(kind, shape)
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """(radius_match, two_way_match, hamming) launch counts so far."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    return matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES
+
+
+def reset_launch_counts() -> None:
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+
+
+def expected_launches(obs: dict) -> tuple[str, tuple[int, int, int]]:
+    """A frame's class and the launches it must make, from what the session
+    did on it: the parts of each class it belongs to, added up."""
+    parts, name = [], ""
+    if not obs["was_init"]:
+        name = "keyframe" if obs["keyframe"] else "tracked"
+        parts.append(LAUNCHES_KEYFRAME if obs["keyframe"] else LAUNCHES_TRACKED)
+    elif obs["anchor"]:
+        name = "anchor"
+        parts.append(LAUNCHES_ANCHOR)
+    else:
+        name = "accumulate"
+        parts.append(LAUNCHES_ACCUMULATE)
+        if obs["draws"]["init"]:
+            name = "attempt"
+            parts.append(LAUNCHES_PAIR)
+        if obs["draws"]["pnp"]:
+            name += " with third-frame check"
+            parts.append(LAUNCHES_THIRD)
+        if obs["adopted"]:
+            name = "adoption"
+            parts.append(LAUNCHES_ADOPTION)
+    if obs["retrained"]:
+        name += " + retrain"
+        parts.append(LAUNCHES_RETRAIN)
+    return name, tuple(sum(p[k] for p in parts) for k in range(3))
+
+
+class Patched:
+    """Replace `module.name` by `wrap(current)` for a with-block, target
+    after target (a later wrap of the same name wraps the earlier one)."""
+
+    def __init__(self, *targets):
+        self.targets = targets     # (module, name, wrap)
+        self.saved = []
+
+    def __enter__(self):
+        for m, n, wrap in self.targets:
+            self.saved.append((m, n, getattr(m, n)))
+            setattr(m, n, wrap(getattr(m, n)))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, real in reversed(self.saved):
+            setattr(m, n, real)
+
+
+def init_call_recorders(calls: list):
+    """Patch targets recording every two-way call of mono init and every
+    Hamming call of the bag-of-words index, tensors cloned, with where."""
+    from mageslam_tpu_torch.bow import index, vocab
+    from mageslam_tpu_torch.runtime import init_step
+    from mageslam_tpu_torch.tracking import map_init
+
+    def recorder(kind, where):
+        def wrap(real):
+            def call(*args):
+                calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
+                                            for a in args]))
+                return real(*args)
+            return call
+        return wrap
+
+    return [(init_step, "match_two_way", recorder("two_way", "covisibility counter")),
+            (map_init, "match_two_way", recorder("two_way", "pair or third frame")),
+            (vocab, "hamming_matrix", recorder("hamming", "vocabulary training")),
+            (index, "hamming_matrix", recorder("hamming", "word assignment"))]
+
+
+def wall_timers(times: dict):
+    """Patch targets timing (synchronized wall ms) each attempt, adoption and
+    retrain, by frame."""
+    from mageslam_tpu_torch.runtime import init_step
+
+    def timer(name):
+        def wrap(real):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+        return wrap
+
+    return [(init_step, "_attempt", timer("attempt")), (init_step, "adopt", timer("adoption")),
+            (init_step, "retrain_index", timer("retrain"))]
+
+
+def top_kernels(events, n: int = 4) -> list[tuple[str, int, float]]:
+    """The n device kernels with the most device time: (name, launches, ms)."""
+    by_name = {}
+    for e in events:
+        count, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, us + _device_us(e))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]
+    return [(name[:60], count, round(us / 1e3, 3)) for name, (count, us) in top]
+
+
+def device_tracers(traces: dict, names):
+    """Patch targets tracing each call of init_step's `names` under
+    torch.profiler: (device events, device ms, top kernels) a call."""
+    from mageslam_tpu_torch.runtime import init_step
+
+    def tracer(name):
+        def wrap(real):
+            def call(*args, **kwargs):
+                out = []
+                events = profile(lambda: out.append(real(*args, **kwargs)))
+                traces.setdefault(name, []).append(
+                    (len(events), sum(_device_us(e) for e in events) / 1e3,
+                     top_kernels(events)))
+                return out[0]
+            return call
+        return wrap
+
+    return [(init_step, n, tracer(label)) for n, label in names]
+
+
+def run_from_frame0(device, frames, draws, patches=()) -> dict:
+    """A bare session (no snapshot) over `frames` from frame 0 with `draws`:
+    results, per-frame launches, wall ms and what the session did on each
+    frame, and the states it passed through."""
+    from mageslam_tpu_torch import SlamSession, golden_path_settings
+    from mageslam_tpu_torch.runtime import init_step
+
+    counting = CountingDraws(draws)
+    sess = SlamSession(golden_path_settings(), CAM, WIDTH, HEIGHT, device, draws=counting)
+    out = {"results": [], "launches": [], "obs": [], "ms": [], "sess": sess}
+
+    def keep_result(real):
+        def adopt(s, res, *args):
+            out["adopt_result"] = res
+            return real(s, res, *args)
+        return adopt
+
+    with Patched((init_step, "adopt", keep_result), *patches):
+        for i, img in enumerate(frames):
+            was_init, retrained = not sess.initialized, sess.bow_training.retrained
+            drawn = dict(counting.counts)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            r = sess.process_frame(img, i * DT, i)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(tuple(a - b for a, b in zip(launch_counts(), before)))
+            out["results"].append(r)
+            meta = sess.init_window.anchor_meta
+            obs = {"was_init": was_init, "keyframe": r.is_keyframe,
+                   "anchor": was_init and not sess.initialized and meta[0] == i,
+                   "adopted": was_init and sess.initialized,
+                   "retrained": sess.bow_training.retrained and not retrained,
+                   "draws": {k: counting.counts[k] - drawn[k] for k in drawn}}
+            out["obs"].append(obs)
+            if obs["adopted"]:
+                out.update(adopt_frame=i, adopt_bow=sess.bow, adopt_scale=sess.map_scale,
+                           anchor_ts=meta[1])
+            if obs["retrained"]:
+                out.update(retrain_frame=i, retrain_bow=sess.bow)
+    return out
+
+
+def check_launch_classes(run: dict, where: str) -> dict:
+    """Each frame's launches against its class's. Returns {class: launches}."""
+    seen = {}
+    for r, obs, got in zip(run["results"], run["obs"], run["launches"]):
+        name, want = expected_launches(obs)
+        if got != want:
+            raise AssertionError(f"{where}, frame {r.frame_id} ({name}): launched "
+                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{want}")
+        seen.setdefault(name, want)
+    return seen
+
+
+def hold_frame(r, want: dict, j: int, k: float) -> tuple[float, int]:
+    """A frame against the JAX outputs at row j, t scaled by k. Returns
+    (pose error, tracked-count difference)."""
+    fid = r.frame_id
+    if r.state.value != int(want["state"][j]) or r.is_keyframe != bool(want["is_kf"][j]):
+        raise AssertionError(f"frame {fid}: {r.state.name}, keyframe {r.is_keyframe}; JAX "
+                             f"state {int(want['state'][j])}, keyframe {bool(want['is_kf'][j])}")
+    d_count = abs(r.tracked_count - int(want["tracked"][j]))
+    if r.pose is None:
+        return 0.0, d_count
+    R, t = r.pose.R.cpu().numpy(), r.pose.t.cpu().numpy()
+    if not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError(f"frame {fid}: pose not finite")
+    err = max(float(np.abs(R - want["R"][j]).max()), float(np.abs(k * t - want["t"][j]).max()))
+    if err > POSE_ATOL or d_count > TRACKED_TOL:
+        raise AssertionError(f"frame {fid}: pose err {err:.3g} (t scaled by {k:.6f}; limit "
+                             f"{POSE_ATOL}), tracked {r.tracked_count} vs JAX "
+                             f"{int(want['tracked'][j])}")
+    return err, d_count
+
+
+def check_bow_state(got, init: dict, when: str) -> str:
+    """The index after adoption or after the retrain against the JAX
+    session's: anchors and kf_has exact, idf and kf_vectors within 1e-6."""
+    want = {n: init[f"init_bow_{when}_{n}"] for n in ("anchors", "idf", "kf_vectors", "kf_has")}
+    anchors, has, idf, vec = bow_errors(got, want)
+    if anchors or has or idf > IDF_ATOL or vec > IDF_ATOL:
+        raise AssertionError(f"index after {when}: {anchors} anchor words and {has} kf_has "
+                             f"entries differ, idf err {idf:.3g}, kf_vectors err {vec:.3g}")
+    return f"anchors equal, idf err {idf:.3g}, kf_vectors err {vec:.3g}"
+
+
+def check_init_calls(calls: list) -> dict:
+    """Every captured two-way and Hamming call of the path held exactly
+    against the plain version; the pair match and each Hamming shape timed.
+    Returns {"two_way": timing of the pair match, "hamming": {shape: row},
+    "calls": counts}."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    counts, shapes = {}, {}
+    matches = [args for kind, where, args in calls if where == "pair or third frame"]
+    # the adoption's attempt made the last two: its pair match, its third-frame check
+    pair = matches[-2] if len(matches) >= 2 else matches[-1]
+    for kind, where, args in calls:
+        if kind == "two_way":
+            got = matching.match_two_way(*args)
+            want = matching.match_two_way_plain(*args)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"two_way_match kernel != plain on init's {where} call")
+        else:
+            a, b = args
+            if not torch.equal(hamming.hamming_matrix(a, b), hamming.hamming_matrix_plain(a, b)):
+                raise AssertionError(f"hamming kernel != plain on the {where} call "
+                                     f"{tuple(a.shape)} x {tuple(b.shape)}")
+            shapes.setdefault((a.shape[0], b.shape[0]), (a, b, where))
+        counts[f"{kind}: {where}"] = counts.get(f"{kind}: {where}", 0) + 1
+    phase("init", f"kernel calls of the path held exactly against the plain version: "
+                  f"{counts}")
+    rows = {shape: time_hamming(a, b, f"{shape} on the path's {where} call")
+            for shape, (a, b, where) in sorted(shapes.items())}
+    d_a, v_a, d_b, v_b, max_hamming, min_diff = pair      # unbatched: as B = 1
+    two_way = time_two_way((d_a, v_a[None], d_b[None], v_b[None], max_hamming, min_diff),
+                           "mono init's pair match (the adoption's)")
+    return {"two_way": two_way, "hamming": rows, "calls": counts}
+
+
+def check_from_frame0(device, card: str) -> dict:
+    """Phase 7. Returns the launch totals of the replayed run and of the run
+    on the session's own generator, the path's kernel rows and timings."""
+    from mageslam_tpu_torch.runtime.draws import GeneratorDraws, ReplayDraws
+
+    with np.load(INIT_FIXTURE) as z:
+        init = {k: z[k] for k in z.files}
+    with np.load(FIXTURE) as z:
+        f30 = {k[4:]: z[k] for k in z.files if k.startswith("ref_")}
+    ref0 = {k[9:]: v for k, v in init.items() if k.startswith("init_ref_")}
+    frames = render_window(0, INIT_LAST + 1)
+
+    run_from_frame0(device, frames, ReplayDraws.from_npz(INIT_FIXTURE, device))  # warm pass
+    calls, times = [], {}
+    reset_launch_counts()
+    replay = ReplayDraws.from_npz(INIT_FIXTURE, device)
+    run = run_from_frame0(device, frames, replay,
+                          init_call_recorders(calls) + wall_timers(times))
+    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+
+    obs = run["obs"]
+    anchors = [i for i, o in enumerate(obs) if o["anchor"]]
+    attempts = [i for i, o in enumerate(obs) if o["draws"]["init"]]
+    want_attempts = [int(init[f"init_att{j}_frame"]) for j in range(int(init["init_n_attempt"]))]
+    if (anchors != init["init_anchor_frames"].tolist() or attempts != want_attempts
+            or run.get("adopt_frame") != int(init["init_adopt_frame"])
+            or run.get("retrain_frame") != int(init["init_retrain_frame"])):
+        raise AssertionError(f"from frame 0: anchors {anchors}, attempts {attempts}, adoption "
+                             f"{run.get('adopt_frame')}, retrain {run.get('retrain_frame')}; "
+                             f"JAX {init['init_anchor_frames'].tolist()}, {want_attempts}, "
+                             f"{int(init['init_adopt_frame'])}, "
+                             f"{int(init['init_retrain_frame'])}")
+    if any(replay.remaining().values()):
+        raise AssertionError(f"recorded draws left unused: {replay.remaining()}")
+
+    # the adopted pair: R direct, t in the JAX session's scale
+    a = int(init["init_n_attempt"]) - 1
+    R_j, t_j = init[f"init_att{a}_pose2_R"], init[f"init_att{a}_pose2_t"]
+    k = float(np.linalg.norm(R_j.T @ t_j)) / run["adopt_scale"]
+    res = run["adopt_result"]
+    pose2_err = max(float(np.abs(res.pose2.R.cpu().numpy() - R_j).max()),
+                    float(np.abs(k * res.pose2.t.cpu().numpy() - t_j).max()))
+    raw_t_err = float(np.abs(res.pose2.t.cpu().numpy() - t_j).max())
+    pv_diff = int((res.point_valid.cpu().numpy() != init[f"init_att{a}_point_valid"]).sum())
+    if abs(k - 1.0) > SCALE_TOL or pose2_err > POSE_ATOL or pv_diff > POINT_VALID_BOUND:
+        raise AssertionError(f"adoption: scale ratio {k:.6f} (limit 1 +- {SCALE_TOL}), pose2 "
+                             f"err {pose2_err:.3g} (limit {POSE_ATOL}), point_valid differs in "
+                             f"{pv_diff} (limit {POINT_VALID_BOUND})")
+    bow_adopt = check_bow_state(run["adopt_bow"], init, "adopt")
+    bow_retrain = check_bow_state(run["retrain_bow"], init, "retrain")
+
+    pose_err, count_err = 0.0, 0
+    for r in run["results"]:
+        want, j = (ref0, r.frame_id) if r.frame_id <= 30 else (f30, r.frame_id - 31)
+        e, c = hold_frame(r, want, j, k)
+        pose_err, count_err = max(pose_err, e), max(count_err, c)
+    classes = check_launch_classes(run, "from frame 0")
+    kf = [r.frame_id for r in run["results"] if r.is_keyframe]
+    phase("init", f"frames 0-{INIT_LAST} from a bare session, JAX draws replayed: anchor "
+                  f"{anchors}, attempts {attempts}, adopted at {run['adopt_frame']}, "
+                  f"vocabulary retrained at {run['retrain_frame']}, keyframes {kf}; as the "
+                  f"JAX session")
+    phase("init", f"adopted pose2: R and scaled t err {pose2_err:.3g} (limit {POSE_ATOL}); "
+                  f"map scale {run['adopt_scale']:.6f}, JAX {run['adopt_scale'] * k:.6f}, "
+                  f"ratio {k:.6f} (limit 1 +- {SCALE_TOL}); raw t err {raw_t_err:.3g}; "
+                  f"point_valid: {int(res.point_valid.sum())} points, {pv_diff} differ "
+                  f"(limit {POINT_VALID_BOUND})")
+    phase("init", f"bag-of-words index after adoption: {bow_adopt}; after the retrain: "
+                  f"{bow_retrain}")
+    phase("init", f"every frame: state and keyframe flag as JAX, max pose err {pose_err:.3g} "
+                  f"(t scaled by the ratio; limit {POSE_ATOL}), max tracked diff {count_err} "
+                  f"(limit {TRACKED_TOL})")
+    phase("init", f"launches (radius_match, two_way_match, hamming) by frame class, asserted "
+                  f"on every frame: {classes}; totals {totals}")
+    init_ms = [t for t, o in zip(run["ms"], obs) if o["was_init"]]
+    tracked_ms = [t for t, o in zip(run["ms"], obs)
+                  if not o["was_init"] and not o["keyframe"] and not o["retrained"]]
+    phase("init", f"wall ms (synchronized): attempts {[round(t, 3) for t in times['attempt']]} "
+                  f"(frames {attempts}; the last includes the third-frame check and the "
+                  f"adoption), adoption {[round(t, 3) for t in times['adoption']]}, retrain "
+                  f"{[round(t, 3) for t in times['retrain']]}; init frames "
+                  f"{[round(t, 3) for t in init_ms]}; tracked frame median "
+                  f"{statistics.median(tracked_ms):.3f} over {len(tracked_ms)}; after one "
+                  f"warm pass; {card}")
+
+    traces = {}
+    profile_frames = frames[:INIT_PROFILE_LAST + 1]
+    run_from_frame0(device, profile_frames, ReplayDraws.from_npz(INIT_FIXTURE, device),
+                    device_tracers(traces, (("_attempt", "attempt"),
+                                            ("retrain_index", "retrain"))))
+    run_from_frame0(device, profile_frames[:int(init["init_adopt_frame"]) + 1],
+                    ReplayDraws.from_npz(INIT_FIXTURE, device),
+                    device_tracers(traces, (("adopt", "adoption"),)))
+    phase("profile", "from frame 0, (device events, device ms) a call: " + "; ".join(
+        f"{n} {[(e, round(ms, 3)) for e, ms, _ in v]}" for n, v in traces.items())
+        + f" (attempts at frames {attempts}, the last with its adoption); {card}")
+    for n, v in traces.items():
+        phase("profile", f"{n}, first call: kernels with the most device time (name, "
+                         f"launches, ms): {v[0][2]}")
+
+    kernels = check_init_calls(calls)
+
+    reset_launch_counts()
+    own = run_from_frame0(device, frames, GeneratorDraws(0, device))
+    own_totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    adopt = own.get("adopt_frame")
+    ms_init = MAX_INIT_MS
+    if adopt is None or (adopt * DT - own["anchor_ts"]) * 1000.0 > ms_init:
+        raise AssertionError(f"own draws: adopted at {adopt}, anchor at "
+                             f"{own.get('anchor_ts')} s (limit {ms_init} ms after it)")
+    after = own["results"][adopt:]
+    if not all(r.state.name == "TRACKING" and r.pose is not None for r in after):
+        raise AssertionError(f"own draws: not every frame from {adopt} to {INIT_LAST} tracked: "
+                             f"{[r.state.name for r in after]}")
+    own_classes = check_launch_classes(own, "own draws")
+    r = own["results"][adopt]
+    phase("init", f"own generator (seed 0, no replay): adopted at frame {adopt}, "
+                  f"{(adopt * DT - own['anchor_ts']) * 1000:.1f} ms after its anchor (limit "
+                  f"{ms_init}), {r.tracked_count} points, pose2 R "
+                  f"{np.round(r.pose.R.cpu().numpy(), 5).tolist()} t "
+                  f"{np.round(r.pose.t.cpu().numpy(), 5).tolist()}, map scale "
+                  f"{own['adopt_scale']:.6f}; every frame to {INIT_LAST} TRACKING, keyframes "
+                  f"{[x.frame_id for x in own['results'] if x.is_keyframe]}; launches by class "
+                  f"{own_classes}; totals {own_totals}")
+    return {"totals": totals, "own_totals": own_totals, **kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -962,19 +1442,22 @@ def main() -> int:
 
     run_window(device, frames, first)          # warm pass: allocator, caches
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
-    results, ms = run_window(device, frames, first)
+    results, ms, bow = run_window(device, frames, first)
     fused_launches, two_way_launches, ham_launches = (
         matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
     pose_err, count_err = check_window(results, ref)
     kf = [r.frame_id for r in results if r.is_keyframe]
     extra = LAUNCHES_KEYFRAME[0] - LAUNCHES_TRACKED[0]      # a mapped keyframe's own
     if (fused_launches != LAUNCHES_TRACKED[0] * len(frames) + extra * len(kf)
-            or two_way_launches != len(kf) or ham_launches != 0):
+            or two_way_launches != len(kf) or ham_launches != len(kf)):
         raise AssertionError(f"over {len(frames)} frames with {len(kf)} keyframes mapped: "
                              f"radius_match kernel launched {fused_launches} times (expected "
                              f"{LAUNCHES_TRACKED[0]} a frame and {extra} more a keyframe), "
                              f"two_way_match {two_way_launches} (expected 1 a "
-                             f"keyframe), hamming kernel {ham_launches} times (expected 0)")
+                             f"keyframe), hamming kernel {ham_launches} times (expected 1 "
+                             f"a keyframe: its bag-of-words add)")
+    phase("slice", f"bag-of-words index after frame {results[-1].frame_id}: "
+                   f"{check_bow_event(bow, 0)}")
     phase("slice", f"frames {first}-{first + len(frames) - 1}: all TRACKING, "
                    f"keyframes at {kf}, max pose err {pose_err:.3g} (limit "
                    f"{POSE_ATOL}), max tracked diff {count_err} (limit {TRACKED_TOL})")
@@ -989,15 +1472,19 @@ def main() -> int:
 
     check_map_event(device, card)
     map_launches = check_map_window(device, card)
+    init = check_from_frame0(device, card)
 
-    ham_row = ham["rows"][PATH_SHAPES[-1]]
+    # the standalone kernel's top-level row: the adoption's vocabulary call
+    ham_row = init["hamming"][(1024, 64)]
     first_path = {"radius_match": fused_launches, "two_way_match": two_way_launches,
                   "hamming_matrix": ham_launches}
 
     def launches(kernel: str) -> dict:
-        return {"launches": first_path[kernel] + map_launches[kernel],
-                "launches_by_path": {"frames_31_54": first_path[kernel],
-                                     "frames_31_95_mapped": map_launches[kernel]}}
+        by_path = {"frames_31_54": first_path[kernel],
+                   "frames_31_95_mapped": map_launches[kernel],
+                   "frames_0_54_from_frame_0": init["totals"][kernel],
+                   "frames_0_54_own_draws": init["own_totals"][kernel]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     print(json.dumps({"kernels": [
         {"name": "radius_match", "route": "cuda",
@@ -1015,8 +1502,11 @@ def main() -> int:
          **launches("hamming_matrix"), "max_abs_err": ham["max_abs_err"],
          "ms": ham_row["ms"], "plain_ms": ham_row["plain_ms"],
          "bound_ms": ham_row["bound_ms"], "bound_by": ham_row["bound_by"],
-         "library_ms": ham_row["library_ms"], "shape": list(PATH_SHAPES[-1]),
+         "library_ms": ham_row["library_ms"], "shape": ham_row["shape"],
          "device_us": ham_row["device_us"], "library_device_us": ham_row["library_device_us"],
+         "note": "top level: the adoption's vocabulary call (1024, 64); path_rows: one call "
+                 "of each shape the bag-of-words path gives it; rows: synthetic words",
+         "path_rows": {f"{n}x{m}": r for (n, m), r in init["hamming"].items()},
          "rows": {f"{n}x{m}": r for (n, m), r in ham["rows"].items()}},
         {"name": "two_way_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/two_way_match.cu",
@@ -1026,11 +1516,12 @@ def main() -> int:
          "bound_ms": two_way["bound_ms"], "bound_by": two_way["bound_by"],
          "library_ms": None,
          "note": "no single PyTorch call computes it; the composites it replaces are timed; "
-                 "top level: the keyframe event's call; init: mono init's shape, B = 1",
+                 "top level: the keyframe event's call; init: mono init's pair match on "
+                 "the path (B = 1, 512x512); init_synthetic: (440, 440), B = 1",
          **{k: two_way[k] for k in ("shape", "composite_hamming_kernel_ms",
                                     "composite_int_mm_ms", "valid_pairs", "device_us_scan",
                                     "device_us_gate")},
-         "init": two_way_init},
+         "init": init["two_way"], "init_synthetic": two_way_init},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -77,7 +77,9 @@ def triangulate_dlt(cam1, pose1: Pose, px1, cam2, pose2: Pose, px2):
     AtA = torch.einsum("...ki,...kj->...ij", A3, A3)
     Atb = -torch.einsum("...ki,...k->...i", A3, a4)
     eye = torch.eye(3, dtype=A.dtype, device=A.device) * 1e-9
-    return torch.linalg.solve(AtA + eye, Atb[..., None])[..., 0]
+    # solve_ex: a singular system gives non-finite values, as the
+    # reference's solve does, where `solve` would raise (and read the host)
+    return torch.linalg.solve_ex(AtA + eye, Atb[..., None])[0][..., 0]
 
 
 def reprojection_error(cam, pose: Pose, pts_world, px):

@@ -1,8 +1,8 @@
 """State carried across from the JAX package.
 
 `mageslam_tpu.io.snapshot.save_session_snapshot` writes one `.npz` with the
-leaves of `MapState`, `TrackingHistory` and `PoseHistory` under `map{i}`,
-`hist{i}` and `ph{i}` (NamedTuple declaration order, a `Pose` flattened as
+leaves of `MapState`, `TrackingHistory`, `PoseHistory` and the bag-of-words
+`BowIndex` under `map{i}`, `hist{i}`, `ph{i}` and `bow{i}` (NamedTuple declaration order, a `Pose` flattened as
 R then t; any of the port's state tuples, `BAProblem` and `BAState` too,
 crosses the same way through `unflatten` and `to_numpy`) and the host counters as JSON in `meta_json`. The leaf-to-field
 map here comes from the port's own field lists, which keep the reference's
@@ -18,6 +18,7 @@ import typing
 import numpy as np
 import torch
 
+from .bow.index import BowIndex
 from .geometry.se3 import Pose
 from .runtime.pose_history import PoseHistory
 from .tracking.frame_state import TrackingHistory
@@ -25,8 +26,9 @@ from .worldmap.map_state import MapState
 
 # prefix of each state's leaves in the snapshot file
 PREFIXES = (("map", MapState), ("hist", TrackingHistory), ("ph", PoseHistory))
+BOW_PREFIX = "bow"    # the BowIndex's leaves, where the session had one
 # int32 fields that hold the reference's uint32 descriptor words
-DESCRIPTOR_FIELDS = frozenset({"kf_desc", "mp_desc", "desc"})
+DESCRIPTOR_FIELDS = frozenset({"kf_desc", "mp_desc", "desc", "anchors"})
 
 
 def _pose_fields(cls) -> set[str]:
@@ -87,16 +89,18 @@ def unflatten(cls, prefix: str, data, device):
 
 def load_jax_snapshot(path: str, device="cuda"):
     """Read a snapshot written by the JAX package's save_session_snapshot.
-    Returns (MapState, TrackingHistory, PoseHistory, meta dict) with tensors
-    on `device` (the card unless the caller asks for the CPU). BoW (`bow*`)
-    and RNG key (`key*`) leaves are ignored: the bag-of-words index is not
-    ported yet."""
+    Returns (MapState, TrackingHistory, PoseHistory, meta dict, BowIndex or
+    None where the file has no `bow*` leaves) with tensors on `device` (the
+    card unless the caller asks for the CPU). The RNG key (`key*`) is
+    ignored: the port takes its draws as inputs (runtime/draws.py)."""
     device = resolve_device(device)
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     states = [unflatten(cls, prefix, data, device) for prefix, cls in PREFIXES]
     meta = json.loads(bytes(data["meta_json"]).decode())
-    return (*states, meta)
+    bow = (unflatten(BowIndex, BOW_PREFIX, data, device) if f"{BOW_PREFIX}0" in data
+           else None)
+    return (*states, meta, bow)
 
 
 def to_numpy(state) -> dict[str, np.ndarray]:

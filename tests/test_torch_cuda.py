@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the CUDA kernels (standalone Hamming, fused
 radius match, fused two-way match) against their plain versions, the
 tracking slice and the first mapping event against the stored JAX outputs,
-and local BA with live tethers against the same run on the CPU.
+local BA with live tethers against the same run on the CPU, the vocabulary
+against the CPU, and mono init from frame 0 against the JAX session.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -145,7 +146,7 @@ def test_slice_on_the_card_matches_stored_jax_outputs(cuda_device):
         np.testing.assert_allclose(r.pose.t.cpu().numpy(), ref["ref_t"][j], atol=1e-3)
     # one fused launch for the cascade and one for track-local-map a frame
     assert matching.LAUNCHES - fused == 12
-    assert hamming.LAUNCHES - ham == 0
+    assert hamming.LAUNCHES - ham == 0     # no keyframe, so no bag-of-words add
 
 
 @pytest.mark.parametrize("n_a,n_b", chip_smoke.TWO_WAY_SHAPES + ((700, 1300),))
@@ -391,3 +392,70 @@ def test_mapping_event_with_a_live_tether_on_the_card(cuda_device):
         maps.append(held)
     torch.testing.assert_close(maps[0].kf_pose.t.cpu(), maps[1].kf_pose.t, rtol=0, atol=1e-3)
     assert torch.equal(maps[0].kf_valid.cpu(), maps[1].kf_valid)
+
+
+@pytest.mark.parametrize("n,m", [(512, 64), (1024, 64), (7680, 64), (8192, 64), (24576, 64)])
+def test_kernel_at_bag_of_words_shapes(cuda_device, n, m):
+    """The standalone kernel at the shapes the bag-of-words path gives it:
+    a keyframe's words, the adoption's pool, the retrain's pool, a
+    bank-size pool and all keyframes' histograms at once."""
+    rng = np.random.RandomState(n + m)
+    a, b = words(rng, n, cuda_device), words(rng, m, cuda_device)
+    torch.testing.assert_close(hamming.hamming_matrix(a, b), hamming.hamming_matrix_plain(a, b),
+                               rtol=0, atol=0)
+
+
+def test_vocabulary_training_on_the_card_matches_the_cpu(cuda_device):
+    """train_vocabulary (12 kernel launches) and the index built from it,
+    on the card and on the CPU from the same inputs: anchors exact."""
+    from mageslam_tpu_torch.bow import index, vocab
+
+    rng = np.random.RandomState(5)
+    desc = words(rng, 1024, "cpu")
+    valid = torch.from_numpy(rng.rand(1024) < 0.9)
+    draws = torch.from_numpy(rng.gumbel(size=1024).astype(np.float32))
+    before = hamming.LAUNCHES
+    got = vocab.train_vocabulary(desc.to(cuda_device), valid.to(cuda_device),
+                                 draws.to(cuda_device))
+    assert hamming.LAUNCHES - before == 12
+    want = vocab.train_vocabulary(desc, valid, draws)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    idx = index.empty_index(4)._replace(anchors=want)
+    idx_gpu = index.BowIndex(*(t.to(cuda_device) for t in idx))
+    a = index.add_keyframe(index.compute_idf(idx_gpu, desc.to(cuda_device),
+                                             valid.to(cuda_device)), 1,
+                           desc[:512].to(cuda_device), valid[:512].to(cuda_device))
+    b = index.add_keyframe(index.compute_idf(idx, desc, valid), 1, desc[:512], valid[:512])
+    for g, w in zip(a, b):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+def test_init_from_frame_0_on_the_card_matches_the_cpu(cuda_device):
+    """A bare session on the card over frames 0-8 with the JAX session's
+    draws replayed: the same anchor, adoption frame and vocabulary as on
+    the CPU, R within 1e-3, t within 1e-3 in the JAX session's scale."""
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    init_fixture = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz")
+    with np.load(init_fixture) as z:
+        ref = {k: z[k] for k in z.files}
+    sess = SlamSession(golden_path_settings(), (520.0, 520.0, 320.0, 240.0), 640, 480,
+                       cuda_device, draws=ReplayDraws.from_npz(init_fixture, cuda_device))
+    two_way = matching.TWO_WAY_LAUNCHES
+    results = [sess.process_frame(img, i * 0.033, i)
+               for i, img in enumerate(bench_world.frames(0, 9))]
+    adopt = int(ref["init_adopt_frame"])
+    assert [r.state.name for r in results] == ["INITIALIZING"] * adopt + ["TRACKING"] * (9 - adopt)
+    # the counter on frames 1-7, the three attempts' pair matches, one third-frame check
+    assert matching.TWO_WAY_LAUNCHES - two_way == adopt + 3 + 1
+    np.testing.assert_array_equal(sess.bow.anchors.cpu().numpy().view(np.uint32),
+                                  ref["init_bow_adopt_anchors"])
+    a = int(ref["init_n_attempt"]) - 1
+    R, t = ref[f"init_att{a}_pose2_R"], ref[f"init_att{a}_pose2_t"]
+    k = float(np.linalg.norm(R.T @ t)) / sess.map_scale
+    assert abs(k - 1) <= 0.05
+    for r in results[adopt:]:
+        j = r.frame_id
+        assert abs(r.tracked_count - int(ref["init_ref_tracked"][j])) <= 3
+        np.testing.assert_allclose(r.pose.R.cpu().numpy(), ref["init_ref_R"][j], atol=1e-3)
+        np.testing.assert_allclose(k * r.pose.t.cpu().numpy(), ref["init_ref_t"][j], atol=1e-3)

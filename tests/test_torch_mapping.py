@@ -13,6 +13,10 @@ keyframes at 54, 68 and 93 mapped.
   after the first event equal in every mask, and after the later events
   too (a float32 difference near a gate could flip a point there: the test
   names the first event and leaf that differs).
+- The bag-of-words index after each event against the JAX session's
+  (tests/data/torch_port_bench640_bow.npz, from the same JAX run): the
+  mapped keyframe's histogram added, culled keyframes dropped; anchors and
+  kf_has exact, idf and kf_vectors within 1e-6.
 - The fixture's first event against one live JAX mapping step (the JAX
   mapping core compiled at full width, about 20 s on the CPU).
 """
@@ -31,6 +35,7 @@ from mageslam_tpu.geometry.se3 import Pose as JPose
 from mageslam_tpu.tracking.frame_state import TrackedFrame as JTrackedFrame
 from mageslam_tpu_torch import SlamSession, TrackingState, bench_world, golden_path_settings
 from mageslam_tpu_torch import interop
+from mageslam_tpu_torch.bow.index import BowIndex
 from mageslam_tpu_torch.ops import hamming, matching
 from mageslam_tpu_torch.runtime import mapping_step
 from mageslam_tpu_torch.runtime.pose_history import PoseHistory
@@ -43,6 +48,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SNAPSHOT = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
+BOW_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_bow.npz")
 MAP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
 CAM = (520.0, 520.0, 320.0, 240.0)
 MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
@@ -169,14 +175,16 @@ def window_run(fixture):
                                          device="cpu")
     ids = fixture["ref_frame_id"].tolist()
     frames = bench_world.frames(ids[0], ids[-1] + 1)
-    results, maps, histories = [], [], []
+    results, maps, histories, bows = [], [], [], []
     for img, i in zip(frames, ids):
         r = sess.process_frame(img, i * 0.033, i)
         results.append(r)
         if r.is_keyframe:
             maps.append(sess.map)
             histories.append(sess.pose_history)
-    return {"sess": sess, "results": results, "maps": maps, "histories": histories}
+            bows.append(sess.bow)
+    return {"sess": sess, "results": results, "maps": maps, "histories": histories,
+            "bows": bows}
 
 
 def test_window_tracks_every_frame_like_the_jax_session(fixture, window_run):
@@ -207,6 +215,19 @@ def test_window_maps_equal_the_jax_maps(fixture, window_run, event):
                        PoseHistory, pose_atol=1e-3)
 
 
+@pytest.mark.parametrize("event", [0, 1, 2])
+def test_window_bow_index_equals_the_jax_index(window_run, event):
+    with np.load(BOW_FIXTURE) as z:
+        want = interop.to_numpy(interop.unflatten(BowIndex, f"ev{event}_post_bow",
+                                                  {k: z[k] for k in z.files}, "cpu"))
+    got = interop.to_numpy(window_run["bows"][event])
+    np.testing.assert_array_equal(got["anchors"], want["anchors"])
+    np.testing.assert_array_equal(got["kf_has"], want["kf_has"])
+    np.testing.assert_allclose(got["idf"], want["idf"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["kf_vectors"], want["kf_vectors"], rtol=0, atol=1e-6)
+    assert got["kf_has"].sum() == window_run["maps"][event].kf_valid.sum()
+
+
 def test_bank_growth_is_armed_and_served(fixture):
     sess = SlamSession.from_jax_snapshot(SNAPSHOT, golden_path_settings(), CAM, 640, 480,
                                          device="cpu")
@@ -218,6 +239,9 @@ def test_bank_growth_is_armed_and_served(fixture):
     r = sess.process_frame(bench_world.frames(31, 32)[0], 31 * 0.033, 31)
     b = sess.settings.Budgets
     assert sess.map.capacity == (b.MaxKeyframes, b.MaxMapPoints, 512) and not sess._grow_pending
+    # the index's keyframe rows grow with the keyframe bank
+    assert sess.bow.kf_vectors.shape == (b.MaxKeyframes, 64)
+    assert sess.bow.kf_has.shape == (b.MaxKeyframes,) and int(sess.bow.kf_has.sum()) == 3
     assert r.state == TrackingState.TRACKING and r.tracked_count == 161
     grown = interop.to_numpy(grow_map(sess.map, b.MaxKeyframes, b.MaxMapPoints))
     for name in ("kf_valid", "mp_valid", "kf_assoc", "mp_desc"):

@@ -7,9 +7,10 @@ and keyframe flags identical, tracked count within 2, pose atol 4e-4 (the
 reference's own chunk-vs-sync reassociation bound, tests/test_pipeline.py),
 associations equal on at least 99 % of valid keypoints.
 
-The same live run also checks the committed fixture that chip_smoke.py
-reads (tools/export_jax_state.py wrote it): its state leaves and its stored
-outputs for frames 31-36.
+The same live run also checks the committed fixtures that chip_smoke.py
+reads (tools/export_jax_state.py wrote them): the f30 file's state leaves
+and its stored outputs for frames 31-36, and the init file's record of
+frames 0-30 (attempts, draws, the index after adoption and retrain).
 """
 
 import ast
@@ -25,10 +26,12 @@ import torch
 
 from mageslam_tpu.geometry.se3 import Pose as JaxPose
 from mageslam_tpu_torch import SlamSession, TrackingState, golden_path_settings
+from mageslam_tpu_torch.bow.index import BowIndex
 from mageslam_tpu_torch.interop import PREFIXES, leaf_names, load_jax_snapshot, to_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
+INIT_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz")
 WINDOW = range(31, 37)
 
 
@@ -57,9 +60,10 @@ def jax_run(tmp_path_factory):
     snap = str(tmp_path_factory.mktemp("snap") / "snap.npz")
     sess = tool.run_to_snapshot(frames, snap)
     leaves = {"map": _jax_leaves(sess.map), "hist": _jax_leaves(sess.history),
-              "ph": _jax_leaves(sess.pose_history)}
+              "ph": _jax_leaves(sess.pose_history), "bow": _jax_leaves(sess.bow)}
     ref = tool.record_window(sess, frames, WINDOW.start, WINDOW.stop)
-    return {"tool": tool, "frames": frames, "snap": snap, "leaves": leaves, "ref": ref}
+    return {"tool": tool, "frames": frames, "snap": snap, "leaves": leaves, "ref": ref,
+            "init": sess.init_record}
 
 
 def test_interop_round_trip(jax_run):
@@ -76,6 +80,15 @@ def test_interop_round_trip(jax_run):
     assert meta["initialized"] and (meta["width"], meta["height"]) == (640, 480)
     # descriptor bits cross as int32 views, sign bit included
     assert (states[0].kf_desc < 0).any()
+    # the bag-of-words index too, its anchors as descriptor words
+    bow = states[4]
+    assert isinstance(bow, BowIndex) and (bow.anchors < 0).any()
+    got = to_numpy(bow)
+    assert list(got) == leaf_names(BowIndex) == list(jax_run["leaves"]["bow"])
+    for name, arr in jax_run["leaves"]["bow"].items():
+        assert got[name].dtype == arr.dtype and got[name].shape == arr.shape, name
+        np.testing.assert_array_equal(np.atleast_1d(got[name]).view(np.uint8),
+                                      np.atleast_1d(arr).view(np.uint8), err_msg=name)
 
 
 def test_committed_fixture_matches_live_jax_run(jax_run):
@@ -100,6 +113,23 @@ def test_committed_fixture_matches_live_jax_run(jax_run):
             np.testing.assert_array_equal(fixed[k][:n], v, err_msg=k)
 
 
+def test_init_fixture_matches_live_jax_run(jax_run):
+    """The init fixture against the live run's record of the same frames
+    0-30: keys, draws and integers exact, floats within 1e-5."""
+    live = jax_run["init"]
+    with np.load(INIT_FIXTURE) as z:
+        fixed = {k: z[k] for k in z.files}
+    assert sorted(live) == sorted(fixed)
+    assert int(fixed["init_adopt_frame"]) == 7 and int(fixed["init_retrain_frame"]) == 14
+    for k, a in live.items():
+        b = fixed[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype.kind == "f" and not k.endswith("_draws"):
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=k)
+
+
 def test_slice_tracks_like_jax(jax_run):
     ref = jax_run["ref"]
     sess = SlamSession.from_jax_snapshot(jax_run["snap"], golden_path_settings(),
@@ -119,10 +149,12 @@ def test_slice_tracks_like_jax(jax_run):
 
 
 def test_untracked_paths_fail_loudly():
+    # a bare session starts mono init: a blank frame becomes its anchor
     sess = SlamSession(golden_path_settings(), (520.0, 520.0, 320.0, 240.0), 640, 480,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="mono initialization"):
-        sess.process_frame(np.zeros((480, 640), np.uint8), 0.0, 0)
+    r = sess.process_frame(np.zeros((480, 640), np.uint8), 0.0, 0)
+    assert r.state == TrackingState.INITIALIZING and r.pose is None
+    assert sess.init_window.anchor_meta == (0, 0.0) and not sess.initialized
     lost = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(),
                                          (520.0, 520.0, 320.0, 240.0), 640, 480,
                                          device="cpu")
