@@ -9,6 +9,7 @@ from .index import (  # noqa: F401
     compute_idf,
     empty_index,
     grow_index,
+    query_keyframes,
     retrain_index,
 )
 from .vocab import train_vocabulary  # noqa: F401

@@ -8,7 +8,8 @@ Word assignment is one `hamming_matrix` call however many images it
 covers: `image_vectors` takes a batch of images and assigns all their
 descriptors in one (K·N, V) call. Histograms are one-hot sums, a fixed
 summation order (a scatter-add on the card sums in atomic order).
-`query_keyframes` comes with loop detection.
+`query_keyframes` scores a query image against every indexed keyframe at
+once (relocalization and loop detection).
 """
 
 from __future__ import annotations
@@ -124,3 +125,20 @@ def retrain_index(index: BowIndex, pool_desc: torch.Tensor, pool_valid: torch.Te
 def remove_keyframes(index: BowIndex, removed: torch.Tensor) -> BowIndex:
     """Drop culled keyframes from the index."""
     return index._replace(kf_has=index.kf_has & ~removed)
+
+
+def query_keyframes(index: BowIndex, desc: torch.Tensor, valid: torch.Tensor,
+                    exclude: torch.Tensor | None = None,
+                    qualifying_score: float = 0.75):
+    """OnlineBow::QueryUnknownImage (OnlineBow.cpp:153-260): similarity
+    sum(min(k, q)) of the query image against every indexed keyframe.
+    Returns (scores (K,), qualified (K,) bool): the keyframes scoring at
+    least max score · qualifying_score (BagOfWordsSettings.
+    QualifyingCandidateScore), none where every score is 0."""
+    q = image_vectors(index, desc, valid)
+    scores = torch.sum(torch.minimum(index.kf_vectors, q[None, :]), dim=1)
+    ok = index.kf_has if exclude is None else index.kf_has & ~exclude
+    scores = torch.where(ok, scores, 0.0)
+    max_score = torch.max(scores)
+    qualified = ok & (scores >= max_score * qualifying_score) & (max_score > 0)
+    return scores, qualified

@@ -3,8 +3,8 @@ culling (port of mageslam_tpu/worldmap/operations.py; Map/Map.cpp and
 ThreadSafeMap.cpp as masked scatters and gathers over the banks).
 
 Every function returns a new MapState and reads nothing back to the host:
-slots and counts stay tensors. `merge_map_points` and `add_keyframe_tether`
-of the reference module come with loop closure.
+slots and counts stay tensors. `add_keyframe_tether` of the reference
+module comes with stereo.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.se3 import Pose
-from ..ops.indexing import pair_index, set_drop
+from ..ops.indexing import any_drop, pair_index, set_drop
 from .map_state import MapState, point_keyframe_matrix, point_octave_histogram
 from .member_index import fidx_remove_keyframes, fidx_remove_points
 
@@ -100,6 +100,30 @@ def remove_map_points(state: MapState, remove: torch.Tensor) -> MapState:
     hit = (assoc >= 0) & remove[torch.where(assoc >= 0, assoc, 0)]
     return state._replace(mp_valid=state.mp_valid & ~remove,
                           kf_assoc=torch.where(hit, -1, assoc))
+
+
+def merge_map_points(state: MapState, src: torch.Tensor, dst: torch.Tensor,
+                     want: torch.Tensor) -> MapState:
+    """Map::MergeMapPoints: retarget every association of src to dst, then
+    remove src. A keyframe observes a point at most once: where a keyframe
+    already observes dst, the retargeted association is dropped (an
+    unchanged association beats a retargeted one, then the lower feature
+    index wins). src, dst, want are (M,) batches."""
+    P = state.mp_valid.shape[0]
+    srcs = torch.where(want, src, P)
+    redirect = set_drop(torch.arange(P, dtype=torch.int32, device=src.device), srcs,
+                        dst.to(torch.int32))
+    assoc = state.kf_assoc
+    new_assoc = torch.where(assoc >= 0, redirect[torch.where(assoc >= 0, assoc, 0)], assoc)
+    N = assoc.shape[1]
+    changed = new_assoc != assoc
+    eq = (new_assoc[:, :, None] == new_assoc[:, None, :]) & (new_assoc[:, None, :] >= 0)
+    earlier = torch.tril(torch.ones((N, N), dtype=torch.bool, device=src.device), -1)
+    preferred = ((changed[:, :, None] & ~changed[:, None, :])
+                 | ((changed[:, :, None] == changed[:, None, :]) & earlier[None]))
+    dup = torch.any(eq & preferred, dim=-1)
+    return state._replace(kf_assoc=torch.where(dup, -1, new_assoc),
+                          mp_valid=state.mp_valid & ~any_drop(P, srcs, want))
 
 
 def remove_keyframes(state: MapState, remove: torch.Tensor,

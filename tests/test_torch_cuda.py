@@ -2,7 +2,9 @@
 radius match, fused two-way match) against their plain versions, the
 tracking slice and the first mapping event against the stored JAX outputs,
 local BA with live tethers against the same run on the CPU, the vocabulary
-against the CPU, and mono init from frame 0 against the JAX session.
+against the CPU, mono init from frame 0 against the JAX session, and
+relocalization, loop detection and closure, the photoreal run's first
+frames with a snapshot restored against the stored JAX outputs.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -459,3 +461,95 @@ def test_init_from_frame_0_on_the_card_matches_the_cpu(cuda_device):
         assert abs(r.tracked_count - int(ref["init_ref_tracked"][j])) <= 3
         np.testing.assert_allclose(r.pose.R.cpu().numpy(), ref["init_ref_R"][j], atol=1e-3)
         np.testing.assert_allclose(k * r.pose.t.cpu().numpy(), ref["init_ref_t"][j], atol=1e-3)
+
+
+def _reloc_fixture():
+    with np.load(chip_smoke.RELOC_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_relocalize_on_the_card_matches_jax(cuda_device):
+    """The reloc fixture's successful relocalization, its B = 4 two-way
+    match and stacked rematch launched once each."""
+    from mageslam_tpu_torch.interop import unflatten
+    from mageslam_tpu_torch.runtime.reloc_step import reloc_kwargs
+    from mageslam_tpu_torch.tracking.frame_state import TrackedFrame
+    from mageslam_tpu_torch.tracking.relocalization import relocalize
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    ref = _reloc_fixture()
+    m = unflatten(MapState, "relocin_map", ref, cuda_device)
+    frame = unflatten(TrackedFrame, "relocin_frame", ref, cuda_device)
+    before = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES)
+    r = relocalize(frame, m, torch.from_numpy(ref["relocin_cand"]).to(cuda_device),
+                   torch.from_numpy(ref["relocin_cand_ok"]).to(cuda_device),
+                   torch.from_numpy(ref["relocin_draws"]).to(cuda_device),
+                   **reloc_kwargs(golden_path_settings()))
+    torch.cuda.synchronize()
+    assert (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert bool(r.succeeded) and int(r.candidate) == int(ref["relocin_out_candidate"])
+    np.testing.assert_array_equal(r.assoc.cpu().numpy(), ref["relocin_out_assoc"])
+    np.testing.assert_allclose(r.pose.R.cpu().numpy(), ref["relocin_out_R"], atol=1e-4)
+    np.testing.assert_allclose(r.pose.t.cpu().numpy(), ref["relocin_out_t"], atol=1e-4)
+
+
+def test_lost_session_relocalizes_on_the_card(cuda_device):
+    ref = _reloc_fixture()
+    run = chip_smoke.run_reloc(cuda_device, ref)
+    first = chip_smoke.RELOC_SNAP_FRAME + 1
+    assert [r.state.value for r in run["results"]] == ref["ref_state"][first:].tolist()
+    assert not any(run["draws"].remaining().values())
+    for lost, got in run["launches"]:
+        assert got == (chip_smoke.LAUNCHES_RELOC if lost else chip_smoke.LAUNCHES_TRACKED)
+
+
+@pytest.mark.parametrize("s", ["a", "b"])
+def test_loop_detection_and_closure_on_the_card_match_jax(cuda_device, s):
+    from mageslam_tpu_torch.interop import unflatten
+    from mageslam_tpu_torch.runtime.loop_closure import detect_loop
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    with np.load(chip_smoke.LOOP_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    m, bow, frame = chip_smoke.loop_scene(ref, s, cuda_device)
+    det, _, _ = detect_loop(m, bow, frame, 5,
+                            lambda: torch.from_numpy(ref[f"{s}_draws"]).to(cuda_device),
+                            min_keyframes=5, min_cluster_size=2)
+    assert bool(det.detected)
+    np.testing.assert_array_equal(det.cluster_mask.cpu().numpy(), ref[f"{s}_det_cluster_mask"])
+    np.testing.assert_array_equal(det.reloc_assoc.cpu().numpy(), ref[f"{s}_det_reloc_assoc"])
+    assert abs(float(det.scale) - float(ref[f"{s}_det_scale"])) < 1e-5
+    sess = chip_smoke.closure_session(cuda_device, m, 5)
+    assert sess._apply_loop_closure(det, frame, 5)
+    want = unflatten(MapState, f"{s}_gba", ref, cuda_device)
+    assert not any(chip_smoke.mask_diffs(sess.map, want).values())
+    assert chip_smoke.aligned_error(sess.map, want) < chip_smoke.CLOSURE_ATOL
+
+
+def test_snapshot_restore_on_the_card(cuda_device):
+    """Photoreal frames 0-11 (init at 5, keyframes at 6, 7, 11) on the
+    card, JAX draws replayed: a snapshot after frame 4, the frames run,
+    the snapshot restored and the frames run again give the same results
+    and the same map."""
+    from mageslam_tpu_torch.interop import to_numpy
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    with np.load(chip_smoke.PHOTOREAL_FIXTURE) as z:
+        frames, ts, cam = z["frames"][:12], z["timestamps"][:12], z["cam"]
+        want_state = z["ref_state"][:12]
+    sess = SlamSession(golden_path_settings(), cam, *chip_smoke.PHOTOREAL_SIZE, cuda_device,
+                       draws=ReplayDraws.from_npz(chip_smoke.PHOTOREAL_FIXTURE, cuda_device))
+    for i in range(5):
+        sess.process_frame(frames[i], float(ts[i]), i)
+    snap = sess.snapshot_state()
+    first = [sess.process_frame(frames[i], float(ts[i]), i) for i in range(5, 12)]
+    map1 = to_numpy(sess.map)
+    sess.restore_state(snap)
+    again = [sess.process_frame(frames[i], float(ts[i]), i) for i in range(5, 12)]
+    assert [r.state.value for r in first] == want_state[5:].tolist()
+    for a, b in zip(first, again):
+        assert (a.state, a.tracked_count, a.is_keyframe) == (b.state, b.tracked_count,
+                                                           b.is_keyframe)
+        assert torch.equal(a.pose.R, b.pose.R) and torch.equal(a.pose.t, b.pose.t)
+    for name, x in to_numpy(sess.map).items():
+        np.testing.assert_array_equal(x, map1[name], err_msg=name)

@@ -14,6 +14,7 @@ frames 0-30 (attempts, draws, the index after adoption and retrain).
 """
 
 import ast
+import dataclasses
 import importlib.util
 import os
 import subprocess
@@ -163,8 +164,16 @@ def test_untracked_paths_fail_loudly():
     assert states == [TrackingState.SKIPPED, TrackingState.SKIPPED,
                       TrackingState.RELOCALIZING]
     assert not lost.history.valid.any()
-    with pytest.raises(NotImplementedError, match="relocalization"):
-        lost.process_frame(blank, 2.0, 200)
+    # a lost session relocalizes; a blank frame has nothing to match
+    r = lost.process_frame(blank, 2.0, 200)
+    assert r.state == TrackingState.RELOCALIZING and r.pose is None
+    assert lost.lost_count == 3
+    # what is not ported still fails loudly: the visual-inertial fuser
+    s = golden_path_settings()
+    fused = dataclasses.replace(s, FuserSettings=dataclasses.replace(s.FuserSettings,
+                                                                     UseFuser=True))
+    with pytest.raises(NotImplementedError, match="fuser"):
+        SlamSession(fused, (520.0, 520.0, 320.0, 240.0), 640, 480, device="cpu")
 
 
 def test_port_runs_without_jax():

@@ -90,7 +90,7 @@ def test_anchor_attempt_and_adoption_frames(ref, run):
     adopted = [r.frame_id for r in run["results"] if r.state == TrackingState.TRACKING]
     assert adopted[0] == int(init["init_adopt_frame"])
     assert run["sess"].init_window.attempts == int(init["init_n_attempt"])
-    assert run["draws"].remaining() == {"init": 0, "pnp": 0, "vocab": 0}
+    assert run["draws"].remaining() == {"init": 0, "pnp": 0, "vocab": 0, "reloc": 0}
     assert run["sess"].bow_training.retrained
 
 

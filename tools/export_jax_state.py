@@ -39,13 +39,49 @@ retrain is stored with the Gumbel draws made from it (float32), in the
 order the session used them: the port takes the draws as inputs, since
 torch cannot reproduce `jax.random`.
 
-    python tools/export_jax_state.py [track|map|both|bow|init|all]
+Three more files hold the references of relocalization, loop closure and
+the photoreal run (`RelocRecorder` records, for every relocalization a
+session runs, the key and the (C, H, M) Gumbel draws of its candidates'
+PnP hypotheses under `reloc{j}_*`, and per mapped keyframe whether loop
+detection was live and whether a cluster qualified; the reference splits
+a key whenever detection is live but draws only when a cluster
+qualifies, and only those draws are recorded):
+
+- `photoreal`: tests/test_photoreal_ate.py's 80 rendered frames (uint8,
+  `frames`), the JAX session's per-frame outputs over them (`ref_*`), its
+  init, vocabulary and relocalization draws, each frame's associations
+  (`ref_assoc`, the newest tracking-history row), the ground truth, the
+  trajectory of `fossilize(global_ba_steps=None)` (`fossil_*`) and then of
+  `fossilize(global_ba_steps=3)` (`fossil3_*`), the map's masks after each
+  mapping event (`ev{j}_kf_valid` etc., the event's frame in
+  `ev_frame_id`), the map before fossilize (`final_map{i}`) and the JAX
+  run's ATE (~100 s);
+- `reloc`: tests/test_bow_reloc.py's lost-and-relocalize session
+  (`rng` = RandomState(0)): every frame's features (`feat{i}_*`), the
+  session's per-frame outputs, its draws, its snapshot after frame
+  RELOC_SNAP_FRAME (the snapshot file's own keys), and for the first successful
+  relocalization its inputs (`relocin_map*`, `relocin_bow*`,
+  `relocin_frame*`, `relocin_draws`), the query's scores and candidates
+  and `relocalize`'s result (`relocin_out_*`) (~90 s);
+- `loop`: tests/test_loop_closure.py's `build_drifted_map` scenes
+  (`a`: drift only, `b`: drift and scale 1.3 with 30 keypoints visible):
+  map, index and keyframe Ki (`{s}_map*`, `{s}_bow*`, `{s}_frame*`),
+  `detect_loop`'s result with its draws, `close_loop` without and with
+  the essential graph, the session's global BA and membership refresh
+  after it; and the 12-keyframe circuit of
+  `test_essential_graph_distributes_drift` with `essential_graph_refine`'s
+  inputs and output (`eg_*`) (~60 s).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
 tests/data/torch_port_bench640_map.npz (map),
-tests/data/torch_port_bench640_bow.npz (bow) and
-tests/data/torch_port_bench640_init.npz (init).
+tests/data/torch_port_bench640_bow.npz (bow),
+tests/data/torch_port_bench640_init.npz (init),
+tests/data/torch_port_photoreal.npz (photoreal),
+tests/data/torch_port_reloc.npz (reloc) and
+tests/data/torch_port_loop.npz (loop).
 """
 
 from __future__ import annotations
@@ -62,6 +98,9 @@ DEFAULT_OUT = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
 MAP_OUT = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
 INIT_OUT = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz")
 BOW_OUT = os.path.join(REPO, "tests", "data", "torch_port_bench640_bow.npz")
+PHOTOREAL_OUT = os.path.join(REPO, "tests", "data", "torch_port_photoreal.npz")
+RELOC_OUT = os.path.join(REPO, "tests", "data", "torch_port_reloc.npz")
+LOOP_OUT = os.path.join(REPO, "tests", "data", "torch_port_loop.npz")
 
 SNAP_FRAME = 30
 LAST_FRAME = 54
@@ -417,9 +456,460 @@ def main_init(out_path: str = INIT_OUT) -> None:
           f"states {arrays['init_ref_state'].tolist()}")
 
 
+PHOTOREAL_FRAMES = 80
+PHOTOREAL_SIZE = (320, 180)
+# the map's masks recorded after each mapping event of the photoreal run
+EVENT_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
+RELOC_HYPOTHESES = 64   # pnp_ransac's hypotheses, as relocalize calls it
+
+
+def reloc_draws(key, candidates: int, rows: int) -> np.ndarray:
+    """(C, H, M) Gumbel draws of `relocalize(key)`: the key splits into C
+    candidates, each candidate's `pnp_ransac` key into H hypotheses of
+    (M,) draws."""
+    import jax
+
+    def per_candidate(k):
+        return jax.vmap(lambda kk: jax.random.gumbel(kk, (rows,)))(
+            jax.random.split(k, RELOC_HYPOTHESES))
+
+    return np.asarray(jax.jit(jax.vmap(per_candidate))(
+        jax.random.split(key, candidates)), np.float32)
+
+
+def detection_gate(settings, map_state, bow, frame, ki):
+    """(live, qualifies, cluster size) of detect_loop on this keyframe, as
+    mageslam_tpu/runtime/loop_closure.py:91-132 computes them."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.bow.index import query_keyframes
+    from mageslam_tpu.runtime.loop_closure import _connected_components
+    from mageslam_tpu.worldmap.covisibility import covisibility_matrix
+
+    cs, lc = settings.CovisibilitySettings, settings.LoopClosureSettings
+    K = map_state.capacity[0]
+    covis = covisibility_matrix(map_state)
+    scores, _ = query_keyframes(bow, frame.desc, frame.kp_valid)
+    covisible = (covis[ki] >= cs.CovisLoopThreshold) & map_state.kf_valid
+    lowest = jnp.min(jnp.where(covisible, scores, jnp.inf))
+    good = (map_state.kf_valid & bow.kf_has & ~covisible & (jnp.arange(K) != ki)
+            & (scores >= lowest) & jnp.any(covisible))
+    labels = _connected_components(covis >= cs.CovisMinThreshold, good)
+    counts = jnp.zeros((K + 1,), jnp.int32).at[labels].add(1).at[K].set(0)
+    size = int(jnp.sum(good & (labels == jnp.argmax(counts))))
+    n_kf = int(jnp.sum(map_state.kf_valid))
+    live = n_kf >= lc.MinKeyframe
+    return live, live and size >= lc.MinClusterSize, size
+
+
+class RelocRecorder:
+    """Records every relocalization a JAX session runs: the lost-frame
+    path's (`_reloc_core`) and loop detection's (inside the keyframe
+    resolve core), with its key and draws, in the order they ran. With
+    `full_inputs` the first successful lost-frame relocalization's inputs
+    and results are stored too (`relocin_*`)."""
+
+    def __init__(self, sess, full_inputs: bool = False):
+        self.sess, self.full_inputs = sess, full_inputs
+        self.arrays: dict = {}
+        self.n = 0
+        self.detections: list[tuple] = []
+        self._real_reloc, self._real_get = sess._reloc_core, sess._get_kf_resolve_core
+        sess._reloc_core = self._reloc
+        sess._get_kf_resolve_core = self._get_core
+
+    def close(self) -> None:
+        self.sess._reloc_core = self._real_reloc
+        del self.sess._get_kf_resolve_core
+
+    def _record(self, key, frame, where: str) -> int:
+        j = self.n
+        self.n += 1
+        C = self.sess.settings.MappingSettings.MaxRelocQueryResults
+        self.arrays[f"reloc{j}_frame"] = np.int32(frame.frame_id)
+        self.arrays[f"reloc{j}_where"] = np.bytes_(where)
+        self.arrays[f"reloc{j}_key"] = np.asarray(key)
+        self.arrays[f"reloc{j}_draws"] = reloc_draws(key, C, frame.desc.shape[0])
+        return j
+
+    def _reloc(self, map_state, bow, frame, key):
+        res = self._real_reloc(map_state, bow, frame, key)
+        j = self._record(key, frame, "lost")
+        self.arrays[f"reloc{j}_succeeded"] = np.asarray(res.succeeded)
+        if self.full_inputs and bool(res.succeeded) and "relocin_cand" not in self.arrays:
+            self._inputs(map_state, bow, frame, key)
+        return res
+
+    def _inputs(self, map_state, bow, frame, key) -> None:
+        """A relocalization's inputs, the query and `relocalize`'s result,
+        as `_build_reloc_core` computes them."""
+        import jax.numpy as jnp
+
+        from mageslam_tpu.bow.index import query_keyframes
+        from mageslam_tpu.tracking.relocalization import relocalize
+
+        s = self.sess.settings
+        rs = s.RelocalizationSettings
+        C = s.MappingSettings.MaxRelocQueryResults
+        self.arrays.update(_flatten("relocin_map", map_state))
+        self.arrays.update(_flatten("relocin_bow", bow))
+        self.arrays.update(_flatten("relocin_frame", frame))
+        self.arrays["relocin_draws"] = self.arrays[f"reloc{self.n - 1}_draws"]
+        scores, qualified = query_keyframes(
+            bow, frame.desc, frame.kp_valid,
+            qualifying_score=s.BagOfWordsSettings.QualifyingCandidateScore)
+        cand = jnp.argsort(-jnp.where(qualified, scores, -1.0))[:C].astype(jnp.int32)
+        cand_ok = qualified[cand] & map_state.kf_valid[cand]
+        r = relocalize(
+            frame, map_state, cand, cand_ok, key,
+            min_brute_force=rs.MinBruteForceCorrespondences,
+            min_radius_matches=rs.MinRadiusMatchCorrespondences,
+            ransac_inlier_pct=rs.RansacInliersPctRequired,
+            ba_inlier_pct=rs.BundleAdjustInliersPctRequired,
+            max_pnp_error=rs.MaxBundlePnPReprojectionError,
+            max_ba_error=rs.MaxBundleAdjustReprojectionError,
+            ba_iterations=rs.BundleAdjustIterations,
+            search_radius=rs.SearchRadius,
+            max_hamming=rs.OrbMatcherSettings.MaxHammingDistance,
+            min_hamming_diff=rs.OrbMatcherSettings.MinHammingDifference)
+        for name, v in (("scores", scores), ("qualified", qualified), ("cand", cand),
+                        ("cand_ok", cand_ok), ("out_R", r.pose.R), ("out_t", r.pose.t),
+                        ("out_assoc", r.assoc), ("out_succeeded", r.succeeded),
+                        ("out_candidate", r.candidate)):
+            self.arrays[f"relocin_{name}"] = np.asarray(v)
+
+    def _get_core(self):
+        import jax
+
+        core = self._real_get()
+
+        def wrapped(map_state, bow, frame, ki, fid, key):
+            out = core(map_state, bow, frame, ki, fid, key)
+            if out[1] is None:
+                return out
+            live, qualifies, size = detection_gate(self.sess.settings, map_state,
+                                                   out[0], frame, int(ki))
+            self.detections.append((int(fid), int(ki), live, qualifies, size,
+                                    bool(out[1].detected)))
+            if qualifies:
+                self._record(jax.random.split(key)[1], frame, "detect")
+            return out
+
+        return wrapped
+
+    def result(self) -> dict:
+        out = dict(self.arrays)
+        out["reloc_n"] = np.int32(self.n)
+        d = np.asarray(self.detections, np.int32).reshape(-1, 6)
+        for i, name in enumerate(("frame", "ki", "live", "qualifies", "cluster_size",
+                                  "detected")):
+            out[f"det_{name}"] = d[:, i]
+        return out
+
+
+def session_refs(sess) -> dict:
+    """Every result of a JAX session as `ref_*` arrays (NaN poses where a
+    frame was not tracked)."""
+    rs = sess.results
+    nan_R, nan_t = np.full((3, 3), np.nan, np.float32), np.full(3, np.nan, np.float32)
+    return {
+        "ref_frame_id": np.asarray([r.frame_id for r in rs], np.int32),
+        "ref_state": np.asarray([r.state.value for r in rs], np.int32),
+        "ref_R": np.asarray([nan_R if r.pose is None else np.asarray(r.pose.R)
+                             for r in rs], np.float32),
+        "ref_t": np.asarray([nan_t if r.pose is None else np.asarray(r.pose.t)
+                             for r in rs], np.float32),
+        "ref_tracked": np.asarray([r.tracked_count for r in rs], np.int32),
+        "ref_is_kf": np.asarray([r.is_keyframe for r in rs], bool),
+    }
+
+
+def _save(out_path: str, arrays: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    np.savez_compressed(out_path, **arrays)
+
+
+def main_photoreal(out_path: str = PHOTOREAL_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    from mageslam_tpu.apps.evaluate import ate_rmse
+    from mageslam_tpu.apps.render_scene import CX, CY, FX, FY, render_sequence
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.runtime import SlamSession
+
+    W, H = PHOTOREAL_SIZE
+    seq = list(render_sequence(PHOTOREAL_FRAMES, W, H))
+    sx, sy = W / 640.0, H / 480.0
+    cam = np.asarray([FX * sx, FY * sy, CX * sx, CY * sy], np.float32)
+    sess = SlamSession(golden_path_settings(), cam=jnp.asarray(cam),
+                       image_width=W, image_height=H)
+    rec, rrec = InitRecorder(sess), RelocRecorder(sess)
+    events = []
+    mapper = sess._insert_keyframe_and_map
+
+    def recording_mapper(frame, frame_id):
+        mapper(frame, frame_id)
+        events.append((frame_id, {n: np.asarray(getattr(sess.map, n)) for n in EVENT_MASKS}))
+
+    sess._insert_keyframe_and_map = recording_mapper
+    assoc = []
+    try:
+        for img, ts, fid, _, _ in seq:
+            sess.process_frame(img.astype(np.float32), ts, fid)
+            # a tracked frame's associations: the newest tracking-history row
+            assoc.append(np.asarray(sess.history.assoc[0]))
+    finally:
+        rec.close()
+        rrec.close()
+        del sess._insert_keyframe_and_map
+    arrays = {k: v for k, v in rec.result().items() if not k.startswith("init_ref_")}
+    arrays["ref_assoc"] = np.asarray(assoc, np.int32)
+    arrays["ev_frame_id"] = np.asarray([e[0] for e in events], np.int32)
+    for j, (_, masks) in enumerate(events):
+        arrays.update({f"ev{j}_{n}": v for n, v in masks.items()})
+    arrays.update(rrec.result())
+    arrays.update(session_refs(sess))
+    arrays.update(_flatten("final_map", sess.map))
+    arrays["frames"] = np.stack([s[0] for s in seq]).astype(np.uint8)
+    arrays["timestamps"] = np.asarray([s[1] for s in seq], np.float64)
+    arrays["gt_R"] = np.asarray([s[3] for s in seq], np.float64)
+    arrays["gt_c"] = np.asarray([s[4] for s in seq], np.float64)
+    arrays["cam"] = cam
+    arrays["map_scale"] = np.float32(sess.map_scale)
+    arrays["n_loops_closed"] = np.int32(sess.n_loops_closed)
+    ids, mats = sess.fossilize(global_ba_steps=None)
+    arrays["fossil_ids"], arrays["fossil_mats"] = np.asarray(ids, np.int32), mats
+    ts_by_id = dict(zip(arrays["ref_frame_id"].tolist(), arrays["timestamps"]))
+    centers = np.asarray([-m[:3, :3].T @ m[:3, 3] for m in mats])
+    rmse, n = ate_rmse(np.asarray([ts_by_id[int(i)] for i in ids]), centers,
+                       arrays["timestamps"], arrays["gt_c"])
+    arrays["jax_ate"], arrays["jax_ate_n"] = np.float64(rmse), np.int32(n)
+    ids3, mats3 = sess.fossilize(global_ba_steps=3)
+    arrays["fossil3_ids"], arrays["fossil3_mats"] = np.asarray(ids3, np.int32), mats3
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes; states "
+          f"{arrays['ref_state'].tolist()}; keyframes at "
+          f"{arrays['ref_frame_id'][arrays['ref_is_kf']].tolist()}; "
+          f"{int(arrays['reloc_n'])} relocalizations; detections (frame, ki, live, "
+          f"qualifies, cluster, detected) {rrec.detections}; {len(ids)} fossilized poses, "
+          f"ATE {rmse:.4f} m over {n}")
+
+
+def _feature_arrays(prefix: str, feats) -> dict:
+    return {f"{prefix}{name}": np.asarray(getattr(feats, name))
+            for name in ("xy", "und_xy", "response", "octave", "angle", "desc", "valid")}
+
+
+RELOC_SNAP_FRAME = 29   # the last tracked frame before the garbage frames
+
+
+def _snapshot_arrays(sess) -> dict:
+    """`save_session_snapshot`'s arrays of `sess`, as the fixture's own
+    keys, so that the port's `SlamSession.from_jax_snapshot` reads the
+    fixture itself."""
+    from mageslam_tpu.io.snapshot import save_session_snapshot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap.npz")
+        save_session_snapshot(path, sess)
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+
+
+def main_reloc(out_path: str = RELOC_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from test_bow_reloc import rand_desc
+    from test_pipeline import CAM, H, W, frame_features, make_world, pose_at
+
+    from mageslam_tpu.ops.frontend import FrameFeatures
+    from mageslam_tpu.runtime import SlamSession
+
+    rng = np.random.RandomState(0)      # the tests' `rng` fixture
+    pts, descs = make_world(rng)
+    sess = SlamSession(cam=CAM, image_width=int(W), image_height=int(H))
+    rec, rrec = InitRecorder(sess), RelocRecorder(sess, full_inputs=True)
+    arrays: dict = {}
+
+    def garbage():
+        n = sess.N
+        xy = jnp.array(rng.uniform(20, 300, (n, 2)), jnp.float32)
+        return FrameFeatures(xy=xy, und_xy=xy, response=jnp.full((n,), 10.0),
+                             octave=jnp.zeros((n,), jnp.int32),
+                             angle=jnp.zeros((n,), jnp.float32),
+                             desc=rand_desc(rng, n), valid=jnp.ones((n,), bool))
+
+    try:
+        for i in range(38):
+            t = i * 0.033
+            if i < 30:
+                feats = frame_features(pts, descs, pose_at(t), sess.N, rng)
+            elif i < 35:
+                feats = garbage()
+            else:
+                feats = frame_features(pts, descs, pose_at(29 * 0.033), sess.N, rng)
+            arrays.update(_feature_arrays(f"feat{i}_", feats))
+            sess.process_features(feats, t, i)
+            if i == RELOC_SNAP_FRAME:
+                arrays.update(_snapshot_arrays(sess))
+    finally:
+        rec.close()
+        rrec.close()
+    arrays.update({k: v for k, v in rec.result().items() if not k.startswith("init_ref_")})
+    arrays.update(rrec.result())
+    arrays.update(session_refs(sess))
+    arrays["cam"] = np.asarray(CAM, np.float32)
+    arrays["size"] = np.asarray([W, H], np.int32)
+    arrays["n_frames"] = np.int32(38)
+    arrays["map_scale"] = np.float32(sess.map_scale)
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes; states "
+          f"{arrays['ref_state'].tolist()}; {int(arrays['reloc_n'])} relocalizations "
+          f"{[int(arrays[f'reloc{j}_frame']) for j in range(int(arrays['reloc_n']))]}; "
+          f"detections {rrec.detections}")
+
+
+def main_loop(out_path: str = LOOP_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from test_loop_closure import CAM as LCAM
+    from test_loop_closure import K_CAP, N_CAP, P_CAP, build_drifted_map
+
+    from mageslam_tpu.bow.index import query_keyframes
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.geometry.se3 import Pose
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.runtime.loop_closure import (close_loop, detect_loop,
+                                                   essential_graph_refine)
+    from mageslam_tpu.tracking.frame_state import TrackedFrame
+    from mageslam_tpu.worldmap import empty_map
+    from mageslam_tpu.worldmap.covisibility import covisibility_matrix
+    from mageslam_tpu.worldmap.map_state import refresh_membership
+
+    settings = golden_path_settings()
+    lc = settings.LoopClosureSettings
+    arrays: dict = {"cam": np.asarray(LCAM, np.float32),
+                    "capacity": np.asarray([K_CAP, P_CAP, N_CAP], np.int32)}
+    scenes = {"a": (np.array([0.4, 0.1, 0.0], np.float32), 1.0, N_CAP),
+              "b": (np.array([0.5, 0.15, 0.0], np.float32), 1.3, 30)}
+    for s, (drift, scale, n_vis) in scenes.items():
+        m, bow, frames, pts, _, n_pts = build_drifted_map(np.random.RandomState(0), drift,
+                                                          scale=scale)
+        xy, d, valid, assoc, pose = frames[5]
+        valid = valid & (jnp.arange(N_CAP) < n_vis)
+        assoc = jnp.where(valid, assoc, -1)
+        frame = TrackedFrame(pose=pose, cam=LCAM, kp_xy=xy,
+                             kp_octave=jnp.zeros((N_CAP,), jnp.int32), desc=d,
+                             kp_valid=valid, assoc=assoc, timestamp=np.float32(0.5),
+                             frame_id=np.int32(12))
+        key = jax.random.PRNGKey(3)
+        det = detect_loop(m, bow, frame, jnp.int32(5), key, min_keyframes=5,
+                          min_cluster_size=2)
+        scores, qualified = query_keyframes(bow, frame.desc, frame.kp_valid)
+        arrays.update(_flatten(f"{s}_map", m))
+        arrays.update(_flatten(f"{s}_bow", bow))
+        arrays.update(_flatten(f"{s}_frame", frame))
+        arrays[f"{s}_pts"], arrays[f"{s}_n_pts"] = pts, np.int32(n_pts)
+        arrays[f"{s}_true_t"] = np.asarray(frames[2][4].t)
+        arrays[f"{s}_draws"] = reloc_draws(key, 4, N_CAP)
+        arrays[f"{s}_scores"], arrays[f"{s}_qualified"] = np.asarray(scores), np.asarray(qualified)
+        arrays[f"{s}_covis"] = np.asarray(covisibility_matrix(m))
+        for name in ("detected", "reloc_assoc", "scale", "cluster_mask"):
+            arrays[f"{s}_det_{name}"] = np.asarray(getattr(det, name))
+        arrays[f"{s}_det_R"] = np.asarray(det.reloc_pose.R)
+        arrays[f"{s}_det_t"] = np.asarray(det.reloc_pose.t)
+        arrays.update(_flatten(f"{s}_closed", close_loop(m, det, frame, jnp.int32(5))))
+        closed_eg = close_loop(
+            m, det, frame, jnp.int32(5),
+            covis_theta=settings.CovisibilitySettings.CovisMinThreshold,
+            essential_graph_iters=lc.EssentialGraphIterations)
+        arrays.update(_flatten(f"{s}_closed_eg", closed_eg))
+        # the session's closure: global BA with the loop-closure settings,
+        # then the membership refresh (pipeline.py:2484-2501)
+        sess = SlamSession(settings, cam=LCAM, image_width=320, image_height=180)
+        sess.map, sess.last_kf_slot = closed_eg, 5
+        mse = sess._global_ba(steps=max(lc.BundleAdjustSettings.NumSteps, 5),
+                              huber=lc.BundleAdjustSettings.HuberWidth,
+                              max_outlier_error=lc.BundleAdjustSettings.MaxOutlierError,
+                              bas=lc.BundleAdjustSettings)
+        arrays.update(_flatten(f"{s}_gba", refresh_membership(sess.map)))
+        arrays[f"{s}_gba_mse"] = np.float32(mse)
+        print(f"scene {s}: detected {bool(det.detected)}, scale {float(det.scale):.5f}, "
+              f"cluster {np.flatnonzero(np.asarray(det.cluster_mask)).tolist()}, "
+              f"global BA mse {mse:.4g}")
+
+    # the 12-keyframe circuit of test_essential_graph_distributes_drift
+    rng = np.random.RandomState(0)
+    NK, G, s_tot = 12, 16, 1.3
+    th = 2 * np.pi * np.arange(NK) / NK
+    c_true = np.stack([2 * np.sin(th), np.zeros(NK), 2 * np.cos(th)], 1).astype(np.float32)
+    s_k = s_tot ** (np.maximum(np.arange(NK) - 2, 0) / 9.0)
+    c_drift = c_true.copy()
+    for k in range(3, NK):
+        c_drift[k] = c_drift[k - 1] + s_k[k] * (c_true[k] - c_true[k - 1])
+    base = np.stack([3.5 * np.sin(th), np.zeros(NK), 3.5 * np.cos(th)], 1)
+    pts_true = (base[:, None, :] + rng.uniform(-0.5, 0.5, (NK, G, 3))).astype(np.float32)
+    own = np.maximum(np.arange(NK) - 1, 0)
+    pts_drift = (c_drift[own][:, None, :] + s_k[own][:, None, None]
+                 * (pts_true - c_true[own][:, None, :])).astype(np.float32)
+    move = np.zeros(NK, bool)
+    move[[10, 11]] = True
+    cluster = np.zeros(NK, bool)
+    cluster[:3] = True
+    kf_c = np.where(move[:, None] | cluster[:, None], c_true, c_drift)
+    pt_now = pts_drift.copy()
+    pt_now[[0, 10, 11]] = pts_true[[0, 10, 11]]
+    m = empty_map(K_CAP, P_CAP, N_CAP)
+    P2 = NK * G
+    m = m._replace(
+        mp_valid=m.mp_valid.at[:P2].set(True),
+        mp_pos=m.mp_pos.at[:P2].set(jnp.asarray(pt_now.reshape(-1, 3))),
+        mp_dmin=m.mp_dmin.at[:P2].set(0.1), mp_dmax=m.mp_dmax.at[:P2].set(50.0),
+        mp_mean_dir=m.mp_mean_dir.at[:P2, 2].set(1.0))
+    assoc_rows = np.full((K_CAP, N_CAP), -1, np.int32)
+    for k in range(NK):
+        g2 = 0 if k == NK - 1 else k + 1
+        assoc_rows[k, :G] = np.arange(k * G, (k + 1) * G)
+        assoc_rows[k, G:2 * G] = np.arange(g2 * G, (g2 + 1) * G)
+    m = m._replace(
+        kf_valid=m.kf_valid.at[:NK].set(True), kf_order=m.kf_order.at[:NK].set(jnp.arange(NK)),
+        kf_frame_id=m.kf_frame_id.at[:NK].set(jnp.arange(NK)),
+        kf_pose=Pose(m.kf_pose.R, m.kf_pose.t.at[:NK].set(jnp.asarray(-kf_c))),
+        kf_cam=m.kf_cam.at[:NK].set(LCAM),
+        kf_kp_valid=m.kf_kp_valid.at[:NK, :2 * G].set(True),
+        kf_assoc=jnp.asarray(assoc_rows))
+    m = refresh_membership(m)
+    pre_t = np.asarray(m.kf_pose.t).copy()
+    pre_t[:NK] = -c_drift
+    pre_cv = covisibility_matrix(m).at[11, 0].set(0).at[0, 11].set(0)
+    move_k, cluster_k = np.pad(move, (0, K_CAP - NK)), np.pad(cluster, (0, K_CAP - NK))
+    out = essential_graph_refine(m, Pose(m.kf_pose.R, jnp.asarray(pre_t)),
+                                 jnp.asarray(move_k), jnp.asarray(cluster_k),
+                                 jnp.float32(1.0 / s_tot), jnp.int32(11),
+                                 pre_covis=pre_cv, iterations=25)
+    arrays.update(_flatten("eg_map", m))
+    arrays.update(_flatten("eg_out", out))
+    arrays["eg_pre_t"], arrays["eg_pre_cv"] = pre_t.astype(np.float32), np.asarray(pre_cv)
+    arrays["eg_move"], arrays["eg_cluster"] = move_k, cluster_k
+    arrays["eg_scale"], arrays["eg_iterations"] = np.float32(1.0 / s_tot), np.int32(25)
+    arrays["eg_c_true"], arrays["eg_pts_true"] = c_true, pts_true
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("track", "map", "both", "init", "bow", "all"):
+    if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
+                     "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -429,3 +919,9 @@ if __name__ == "__main__":
         main_init()
     if which in ("bow", "all"):
         main_map(bow_path=BOW_OUT)
+    if which in ("photoreal", "all"):
+        main_photoreal()
+    if which in ("reloc", "all"):
+        main_reloc()
+    if which in ("loop", "all"):
+        main_loop()
