@@ -131,6 +131,35 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    BA leaves the gauge free); wall time over repeats, device events and
    device ms. Then the closure's cost on phase 6's final map with an
    identity detection (the exploring world never closes a loop).
+11. Stereo rig and cameras, from tests/data/torch_port_stereo.npz,
+   torch_port_cameras.npz, torch_port_cameras_kp.npz and
+   torch_port_orient.npz (the JAX runs, `tools/export_jax_state.py
+   stereo|cameras`), JAX's draws replayed, with the CPU tests' tolerances:
+   - `stereo_initialize` on tests/test_stereo.py's synthetic pair
+     (succeeded, match count, feat2 and point_valid exact, points within
+     1e-3 relative, pose2 within 1e-4) and with no displacement (rejected);
+     its two-way call held exactly against the plain version and timed
+     beside the composites it replaces, with its bound;
+   - the rig-tether session (40 frames: the bootstrap pair, then features),
+     every mapping event's local BA holding the live rig tether: states,
+     keyframe flags, unscaled poses (1e-3), tracked counts (3) and masks
+     after each event as JAX's, the tether bank exact, the rig transform
+     within 1e-3; launches asserted by frame class (the bootstrap: the pair
+     match and the adoption's 15 Hamming launches); each frame's and event's
+     wall time, each event's device events and device ms (its frame run
+     again from the snapshot before it, traced);
+   - the mixed-FOV rig through `process_stereo_frames` (24 pairs rendered by
+     `stereo_world`, held to the JAX run's frames by SHA-256): the rescale
+     active, the secondary camera within 1e-4, frames and masks as above,
+     the post-init keyframes' intrinsics as JAX's; the pair frame's and
+     the rescale's time;
+   - tests/test_undistort.py's distorted Poly3K photoreal scene, 40 frames,
+     with UndistortImagePixels on and off, and 30 photoreal frames with
+     UseOrientation=True, each from a bare session: frames and masks as
+     JAX's (t scaled by the map-scale ratio), launches by frame class;
+     `undistort_image`'s time a frame.
+   Frames and events beyond the tolerance on the card are logged in ROADMAP
+   queue 3 and held to LOGGED's ceilings.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -156,6 +185,25 @@ INIT_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz
 PHOTOREAL_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_photoreal.npz")
 RELOC_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_reloc.npz")
 LOOP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_loop.npz")
+STEREO_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_stereo.npz")
+CAMERAS_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_cameras.npz")
+CAMERAS_KP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_cameras_kp.npz")
+ORIENT_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_orient.npz")
+ORIENT_FRAMES = 30                 # the oriented photoreal session's frames
+WARM_FRAMES = 6                    # a stereo session's warm pass: bootstrap, one event
+TRACED_EVENTS = 3                  # rig-tether mapping events traced: first, middle, last
+STEREO_POINT_RTOL = 1e-3           # stereo_initialize's points against JAX's
+STEREO_PAIR_POSE_ATOL = 1e-4       # its pose2
+STEREO_CAM1_ATOL = 1e-4            # the mixed rig's rescaled secondary camera
+# ROADMAP queue 3, by run: ({frame: pose ceiling}, {mapping event's frame:
+# differing kf_assoc and kf_member entries allowed}). The rig sessions move
+# with float summation order (the port's own CPU runs at 1-8 threads spread
+# to 3.9e-2 and 556 mask entries on the rig-tether scene); two mapping
+# events of the UndistortImagePixels run hold one association on the other
+# keypoint of a pair whose responses are 4e-4 apart
+LOGGED = {"rig_": ({f: 1e-2 for f in range(18, 40)}, {17: 2, 21: 2}),
+          "mix_": ({f: 4e-3 for f in range(16, 24)}, {}),
+          "und_": ({}, {13: 2, 16: 2})}
 PHOTOREAL_SIZE = (320, 180)
 ATE_LIMIT = 0.06                   # m, tests/test_photoreal_ate.py's gate
 TRACKED_SHARE = 0.8
@@ -210,6 +258,7 @@ LAUNCHES_DETECTION_RELOC = (1, 1, 0)
 # a lost frame's relocalization: the stacked rematch and track-local-map's
 # match, the B = 4 two-way match, the query's word assignment
 LAUNCHES_RELOC = (2, 1, 1)
+LAUNCHES_STEREO_PAIR = (0, 1, 0)   # stereo_initialize's pair match (B = 1)
 INIT_LAST = 54                     # frames 0..INIT_LAST from frame 0
 INIT_PROFILE_LAST = 14             # the traced pass runs to the retrain
 SCALE_TOL = 0.05                   # |s_jax / s_port - 1| at adoption
@@ -1147,7 +1196,7 @@ def expected_launches(obs: dict) -> tuple[str, tuple[int, int, int]]:
     if obs["retrained"]:
         name += " + retrain"
         parts.append(LAUNCHES_RETRAIN)
-    if obs.get("live"):
+    if obs.get("detections"):
         name += " + detection"
         parts.append(LAUNCHES_DETECTION)
     if obs.get("qualified"):
@@ -1248,17 +1297,32 @@ def device_tracers(traces: dict, names):
     return [(init_step, n, tracer(label)) for n, label in names]
 
 
+def detection_counter(count: list):
+    """A patch target counting the session's loop detections in count[0]:
+    each launches the query's word assignment, live or not."""
+    from mageslam_tpu_torch.runtime import session as session_mod
+
+    def wrap(real):
+        def call(*args, **kwargs):
+            count[0] += 1
+            return real(*args, **kwargs)
+        return call
+    return (session_mod, "detect_loop", wrap)
+
+
 def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEIGHT),
-                    timestamps=None) -> dict:
+                    timestamps=None, settings=None, camera=None) -> dict:
     """A bare session (no snapshot) over `frames` from frame 0 with `draws`:
     results, per-frame launches, wall ms and what the session did on each
     frame, and the states it passed through. Frame i's timestamp is
-    timestamps[i], by default i * DT."""
+    timestamps[i], by default i * DT. `settings` (golden by default) and
+    `camera` (a (16,) model) go to the session."""
     from mageslam_tpu_torch import SlamSession, golden_path_settings
     from mageslam_tpu_torch.runtime import init_step
 
     counting = CountingDraws(draws)
-    sess = SlamSession(golden_path_settings(), cam, *size, device, draws=counting)
+    sess = SlamSession(settings or golden_path_settings(), cam, *size, device, draws=counting,
+                       camera=camera)
     out = {"results": [], "launches": [], "obs": [], "ms": [], "sess": sess}
 
     def keep_result(real):
@@ -1267,11 +1331,12 @@ def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEI
             return real(s, res, *args)
         return adopt
 
-    with Patched((init_step, "adopt", keep_result), *patches):
+    detections = [0]
+    with Patched((init_step, "adopt", keep_result), detection_counter(detections), *patches):
         for i, img in enumerate(frames):
             was_init, retrained = not sess.initialized, sess.bow_training.retrained
             drawn = dict(counting.counts)
-            stats = dict(sess.loop_det_stats)
+            stats, ran = dict(sess.loop_det_stats), detections[0]
             before = launch_counts()
             t0 = time.perf_counter()
             r = sess.process_frame(img, i * DT if timestamps is None else float(timestamps[i]), i)
@@ -1285,6 +1350,7 @@ def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEI
                    "adopted": was_init and sess.initialized,
                    "retrained": sess.bow_training.retrained and not retrained,
                    "draws": {k: counting.counts[k] - drawn[k] for k in drawn},
+                   "detections": detections[0] - ran,
                    **{k: sess.loop_det_stats[k] - stats[k] for k in ("live", "qualified")}}
             out["obs"].append(obs)
             if obs["adopted"]:
@@ -1611,10 +1677,10 @@ def snapshotter(snaps: dict, frame_ids):
     from mageslam_tpu_torch.runtime import session as session_mod
 
     def wrap(real):
-        def call(self, feats, timestamp, frame_id):
+        def call(self, feats, timestamp, frame_id, **kwargs):
             if frame_id in frame_ids:
                 snaps[frame_id] = self.snapshot_state()
-            return real(self, feats, timestamp, frame_id)
+            return real(self, feats, timestamp, frame_id, **kwargs)
         return call
     return (session_mod.SlamSession, "process_features", wrap)
 
@@ -1875,12 +1941,7 @@ def check_photoreal(device, card: str) -> dict:
 
 
 def reloc_features(ref: dict, i: int, device):
-    from mageslam_tpu_torch.ops.frontend import FrameFeatures
-
-    def t(a):
-        return torch.from_numpy((a.view(np.int32) if a.dtype == np.uint32 else a).copy())
-    return FrameFeatures(*(t(ref[f"feat{i}_{n}"]).to(device) for n in (
-        "xy", "und_xy", "response", "octave", "angle", "desc", "valid")))
+    return fixture_features(ref, f"feat{i}_", device)
 
 
 def run_reloc(device, ref: dict, patches=()) -> dict:
@@ -2096,6 +2157,425 @@ def check_loop_closure(device, card: str, window_sess) -> dict:
     return {"totals": totals, **out}
 
 
+def stereo_settings(**keyframe):
+    """Golden settings with MaxDepthMeters = 12 (the synthetic rigs' scenes
+    are 3-10 m deep at a 0.12 m baseline) and, where given, KeyframeSettings
+    replaced (tests/test_stereo.py)."""
+    import dataclasses
+
+    from mageslam_tpu_torch import golden_path_settings
+
+    s = golden_path_settings()
+    st = s.StereoSettings
+    s = dataclasses.replace(s, StereoSettings=dataclasses.replace(
+        st, StereoMapInitializationSettings=dataclasses.replace(
+            st.StereoMapInitializationSettings, MaxDepthMeters=12.0)))
+    if keyframe:
+        s = dataclasses.replace(s, KeyframeSettings=dataclasses.replace(
+            s.KeyframeSettings, **keyframe))
+    return s
+
+
+def camera_settings(undistort_pixels=None, **fes):
+    """Golden settings with the mono camera's feature settings (and
+    UndistortImagePixels, where given) replaced."""
+    import dataclasses
+
+    from mageslam_tpu_torch import golden_path_settings
+
+    s = golden_path_settings()
+    cam = s.MonoSettings.MonoCamera
+    cam = dataclasses.replace(cam, FeatureExtractorSettings=dataclasses.replace(
+        cam.FeatureExtractorSettings, **fes))
+    if undistort_pixels is not None:
+        cam = dataclasses.replace(cam, UndistortImagePixels=undistort_pixels)
+    return dataclasses.replace(s, MonoSettings=dataclasses.replace(s.MonoSettings,
+                                                                   MonoCamera=cam))
+
+
+def load_npz(*paths) -> dict:
+    out = {}
+    for p in paths:
+        with np.load(p) as z:
+            out.update({k: z[k] for k in z.files})
+    return out
+
+
+def fixture_features(ref: dict, prefix: str, device):
+    from mageslam_tpu_torch.ops.frontend import FrameFeatures
+
+    def t(a):
+        return torch.from_numpy((a.view(np.int32) if a.dtype == np.uint32 else a).copy())
+    return FrameFeatures(*(t(ref[prefix + n]).to(device) for n in FrameFeatures._fields))
+
+
+def hold_run(results, maps, ref: dict, prefix: str, k: float,
+             where: str) -> tuple[float, int, dict]:
+    """Every frame's state and keyframe flag, pose (t scaled by k) and
+    tracked count against the JAX run under `prefix`, and the map's masks
+    after each mapping event, but where LOGGED logs the run's frames and
+    events. Returns (max pose err, max tracked diff, mask differences by
+    event frame)."""
+    from types import SimpleNamespace
+
+    n = len(results)
+    want = {name: ref[f"{prefix}ref_{name}"][:n] for name in ("state", "is_kf", "tracked",
+                                                               "R", "t")}
+    errs = [frame_error(r, want, j, k) for j, r in enumerate(results)]
+    logged_frames, logged_events = LOGGED.get(prefix, ({}, {}))
+    over = [(r.frame_id, round(e, 6), c) for r, (e, c) in zip(results, errs)
+            if c > TRACKED_TOL or e > logged_frames.get(r.frame_id, POSE_ATOL)]
+    ev = ref[f"{prefix}ev_frame_id"]
+    ev = ev[ev < n]
+    if over or len(maps) != len(ev):
+        raise AssertionError(f"{where}: frames beyond the tolerance (frame, pose err, tracked "
+                             f"diff) {over}; {len(maps)} mapping events, JAX {len(ev)}")
+    diffs = {}
+    for j, m in enumerate(maps):
+        d = mask_diffs(m, SimpleNamespace(**{
+            name: torch.from_numpy(ref[f"{prefix}ev{j}_{name}"]).to(m.kf_valid.device)
+            for name in MAP_MASKS}))
+        bad = {name: c for name, c in d.items() if c and not (
+            name in ("kf_assoc", "kf_member") and c <= logged_events.get(int(ev[j]), 0))}
+        if bad:
+            raise AssertionError(f"{where}: the map after mapping event {j} (frame {ev[j]}) "
+                                 f"differs from JAX's: {d}")
+        diffs[int(ev[j])] = d
+    return max(e for e, _ in errs), max(c for _, c in errs), diffs
+
+
+def run_stereo(device, sess, steps, patches=()) -> dict:
+    """Drive `sess` by `steps` (frame i → its call), keeping each frame's
+    result, wall ms (synchronized), launches and what the session did."""
+    out = {"results": [], "ms": [], "launches": [], "obs": []}
+    detections = [0]
+    with Patched(detection_counter(detections), *patches):
+        for i, step in enumerate(steps):
+            was_init, retrained = not sess.initialized, sess.bow_training.retrained
+            stats, ran = dict(sess.loop_det_stats), detections[0]
+            before = launch_counts()
+            t0 = time.perf_counter()
+            r = step()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(tuple(a - b for a, b in zip(launch_counts(), before)))
+            out["results"].append(r)
+            out["obs"].append({
+                "was_init": was_init, "keyframe": r.is_keyframe,
+                "stereo_bootstrap": was_init and sess.initialized,
+                "retrained": sess.bow_training.retrained and not retrained,
+                "detections": detections[0] - ran,
+                **{k: sess.loop_det_stats[k] - stats[k] for k in ("live", "qualified")}})
+    return out
+
+
+def check_stereo_launches(run: dict, where: str) -> dict:
+    """Each frame's launches: the stereo bootstrap's pair match and
+    adoption, else as `expected_launches` classes a tracked frame."""
+    seen = {}
+    for r, obs, got in zip(run["results"], run["obs"], run["launches"]):
+        if obs["stereo_bootstrap"]:
+            name, want = "stereo bootstrap", tuple(
+                a + b for a, b in zip(LAUNCHES_STEREO_PAIR, LAUNCHES_ADOPTION))
+        elif obs["was_init"]:
+            name, want = "stereo pair not adopted", LAUNCHES_STEREO_PAIR
+        else:
+            name, want = expected_launches(obs)
+        if got != want:
+            raise AssertionError(f"{where}, frame {r.frame_id} ({name}): launched "
+                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{want}")
+        seen.setdefault(name, want)
+    return seen
+
+
+def check_stereo_pair(device, ref: dict) -> dict:
+    """Phase 11, part 1: `stereo_initialize` on the synthetic pair and the
+    zero-baseline pair against JAX; its two-way calls held exactly against
+    the plain version; the pair match timed beside the composites it
+    replaces, with its bound."""
+    from mageslam_tpu_torch.geometry.se3 import Pose
+    from mageslam_tpu_torch.tracking import stereo_init
+
+    f0 = fixture_features(ref, "pair_f0_", device)
+    f1 = fixture_features(ref, "pair_f1_", device)
+    cam = torch.from_numpy(ref["cam"]).to(device)
+    calls = []
+    patches = [(stereo_init, "match_two_way", lambda real: recording_call(calls, real))]
+    for which, rel in (("pair_", Pose(torch.from_numpy(ref["pair_rel_R"]).to(device),
+                                      torch.from_numpy(ref["pair_rel_t"]).to(device))),
+                       ("pair_zero_", Pose.identity(device=device))):
+        with Patched(*patches):
+            res = stereo_init.stereo_initialize(
+                f0.und_xy, f0.desc, f0.valid, f1.und_xy, f1.desc, f1.valid, cam, rel,
+                stereo_init.StereoInitSettings(max_depth_meters=12.0))
+        for name in ("succeeded", "match_count", "feat2", "point_valid"):
+            if not np.array_equal(getattr(res, name).cpu().numpy(), ref[which + name]):
+                raise AssertionError(f"stereo_initialize ({which}): {name} differs from JAX's")
+        if which == "pair_":
+            ok = ref["pair_point_valid"]
+            want = ref["pair_points"][ok]
+            pt_err = float((np.linalg.norm(res.points.cpu().numpy()[ok] - want, axis=1)
+                            / np.linalg.norm(want, axis=1)).max())
+            pose_err = max(float(np.abs(res.pose2.R.cpu().numpy() - ref["pair_pose2_R"]).max()),
+                           float(np.abs(res.pose2.t.cpu().numpy() - ref["pair_pose2_t"]).max()))
+            if pt_err > STEREO_POINT_RTOL or pose_err > STEREO_PAIR_POSE_ATOL:
+                raise AssertionError(f"stereo_initialize: points {pt_err:.3g} relative (limit "
+                                     f"{STEREO_POINT_RTOL}), pose2 {pose_err:.3g} (limit "
+                                     f"{STEREO_PAIR_POSE_ATOL})")
+    hold_path_calls([("two_way", "stereo_initialize", c) for c in calls], "stereo_initialize")
+    phase("stereo", f"stereo_initialize on the synthetic pair: succeeded, "
+                    f"{int(ref['pair_match_count'])} matches, "
+                    f"{int(ref['pair_point_valid'].sum())} points, feat2 and point_valid as JAX; "
+                    f"points within {pt_err:.3g} relative (limit {STEREO_POINT_RTOL}), pose2 "
+                    f"within {pose_err:.3g} (limit {STEREO_PAIR_POSE_ATOL}); the zero-baseline "
+                    f"pair rejected as JAX")
+    desc_a, valid_a, desc_b, valid_b, max_hamming, min_diff = calls[0]     # B = 1
+    return time_two_way((desc_a, valid_a[None], desc_b[None], valid_b[None], max_hamming,
+                         min_diff), "the stereo pair (StereoMapInitialization gates)")
+
+
+def recording_call(calls: list, real):
+    def call(*args):
+        calls.append([a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+        return real(*args)
+    return call
+
+
+def check_rig_session(device, ref: dict, card: str) -> dict:
+    """Phase 11, part 2: the rig-tether session, 40 frames of synthetic
+    features; every mapping event's local BA assembles the live rig tether."""
+    from mageslam_tpu_torch import SlamSession
+    from mageslam_tpu_torch.geometry.se3 import Pose
+    from mageslam_tpu_torch.runtime import session as session_mod
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    n = len(ref["rig_timestamps"])
+    feats = [fixture_features(ref, "rig_feat0_", device)] + [
+        fixture_features(ref, f"rig_feat{i}_", device) for i in range(1, n)]
+    feat0b = fixture_features(ref, "rig_feat0b_", device)
+    rel = Pose(torch.from_numpy(ref["rig_rel_R"]).to(device),
+               torch.from_numpy(ref["rig_rel_t"]).to(device))
+    settings = stereo_settings(KeyframeDecisionMaxTrackingPointMatches=100000,
+                               KeyframeDecisionMaxTrackingPointOverlap=0.98)
+
+    def session():
+        draws = ReplayDraws.from_npz(STEREO_FIXTURE, device, prefix="rig_")
+        sess = SlamSession(settings, ref["cam"], *ref["size"].tolist(), device, draws=draws)
+        ts = ref["rig_timestamps"]
+        steps = [lambda: sess.process_stereo_features(feats[0], feat0b, rel, 0.0, 0)] + [
+            (lambda i=i: sess.process_features(feats[i], float(ts[i]), i)) for i in range(1, n)]
+        return sess, draws, steps
+
+    sess, _, steps = session()
+    run_stereo(device, sess, steps[:WARM_FRAMES])           # warm pass
+    sess, draws, steps = session()
+    maps, events, snaps = [], [], {}
+    ev_frames = [int(f) for f in ref["rig_ev_frame_id"]]
+    kf_frames = [ev_frames[j] for j in
+                 np.linspace(0, len(ev_frames) - 1, TRACED_EVENTS).round().astype(int)]
+    reset_launch_counts()
+    run = run_stereo(device, sess, steps,
+                     [map_recorder(maps), step_timers(events, session_mod, "mapping"),
+                      snapshotter(snaps, kf_frames)])
+    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    classes = check_stereo_launches(run, "rig-tether session")
+    pose_err, count_err, diffs = hold_run(run["results"], maps, ref, "rig_", 1.0,
+                                          "rig-tether session")
+    m = sess.map
+    for name in ("tether_owner", "tether_origin", "tether_kind", "tether_distance",
+                 "tether_weight"):
+        if not np.array_equal(getattr(m, name).cpu().numpy(), ref[f"rig_final_{name}"]):
+            raise AssertionError(f"rig-tether session: {name} differs from JAX's")
+    kR, kt = m.kf_pose.R.cpu().numpy(), m.kf_pose.t.cpu().numpy()
+    rig_R, jR = kR[1] @ kR[0].T, ref["rig_final_kf_R"][1] @ ref["rig_final_kf_R"][0].T
+    rig_err = max(float(np.abs(rig_R - jR).max()), float(np.abs(
+        (kt[1] - rig_R @ kt[0]) - (ref["rig_final_kf_t"][1] - jR @ ref["rig_final_kf_t"][0])
+    ).max()))
+    if rig_err > POSE_ATOL or any(draws.remaining().values()):
+        raise AssertionError(f"rig-tether session: kf0 -> kf1 rig transform {rig_err:.3g} "
+                             f"from JAX's (limit {POSE_ATOL}); draws left {draws.remaining()}")
+    # the tether holds the rig: kf1 sits one baseline from kf0 along -x
+    if np.abs(kt[1] - rig_R @ kt[0] - np.array([-1.0, 0.0, 0.0])).max() > 5e-2:
+        raise AssertionError("rig-tether session: the rig transform left the tether")
+    # each mapping event's frame again from the snapshot before it, traced
+    traces = []
+    differing = retrace(sess, snaps, {r.frame_id: r for r in run["results"]},
+                        lambda f: sess.process_features(feats[f], float(ref["rig_timestamps"][f]),
+                                                        f),
+                        step_tracers(traces, session_mod, "mapping"))
+    traces.reverse()
+    tracked_ms = [t for t, o in zip(run["ms"], run["obs"])
+                  if not o["was_init"] and not o["keyframe"]]
+    phase("stereo", f"rig-tether session, {n} frames (the bootstrap pair, then features), JAX "
+                    f"draws replayed: every state and keyframe flag as JAX (keyframes "
+                    f"{[r.frame_id for r in run['results'] if r.is_keyframe]}), max pose err "
+                    f"{pose_err:.3g} unscaled (limit {POSE_ATOL}, frames 18-39 logged to "
+                    f"{max(LOGGED['rig_'][0].values())}), max tracked diff {count_err}; mask "
+                    f"entries differing from JAX's after the {len(maps)} mapping events "
+                    f"{({f: d for f, d in diffs.items() if any(d.values())}) or 'none'}; tether "
+                    f"bank as JAX's, kf0 -> kf1 rig transform within {rig_err:.3g}")
+    phase("stereo", f"rig-tether launches by frame class, asserted on every frame: {classes}; "
+                    f"totals {totals}")
+    phase("stereo", f"rig-tether wall ms (synchronized, after a warm pass over frames "
+                    f"0-{WARM_FRAMES - 1}): tracked frame "
+                    f"median {statistics.median(tracked_ms):.3f} (n = {len(tracked_ms)}); "
+                    f"bootstrap frame {run['ms'][0]:.3f}; every frame "
+                    f"{[round(t, 1) for t in run['ms']]}; mapping events with the live rig "
+                    f"tether (wall ms, host reads, launches): "
+                    f"{[(round(e['ms'], 3), e['host_reads'], e['launches']) for e in events]}; "
+                    f"{card}")
+    phase("profile", f"rig-tether mapping events at frames {sorted(snaps)}, each frame run "
+                     f"again from the snapshot before it, traced: (device events, device ms) "
+                     f"an event: "
+                     f"{[(e, round(ms, 3)) for e, ms, _ in traces]}; kernels with the most "
+                     f"device time in the last: {traces[-1][2]}; frames whose second run "
+                     f"differs bit for bit: {differing or 'none'}; {card}")
+    return {"totals": totals, "events": events, "traces": traces}
+
+
+def check_mixed_rig(device, ref: dict, card: str) -> dict:
+    """Phase 11, part 3: the mixed-FOV rig through `process_stereo_frames`."""
+    from mageslam_tpu_torch import SlamSession, stereo_world
+    from mageslam_tpu_torch.geometry.se3 import Pose
+    from mageslam_tpu_torch.ops.undistort import remap_bilinear
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    pairs = stereo_world.frames()
+    hashes = ([stereo_world.frame_hash(p[0]) for p in pairs],
+              [stereo_world.frame_hash(p[1]) for p in pairs])
+    if hashes != tuple([h.decode() for h in ref[f"mix_hash{c}"].tolist()] for c in (0, 1)):
+        raise AssertionError("mixed rig: the port's renderer does not give the JAX run's frames")
+    R, t = stereo_world.rig()
+    rel = Pose(torch.from_numpy(R).to(device), torch.from_numpy(t).to(device))
+    camera1 = stereo_world.secondary_camera()
+    imgs = [(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device), ts)
+            for a, b, ts in pairs]
+
+    def session():
+        draws = ReplayDraws.from_npz(STEREO_FIXTURE, device, prefix="mix_")
+        sess = SlamSession(stereo_settings(), ref["mix_cam"], stereo_world.W, stereo_world.H,
+                           device, draws=draws)
+        steps = [(lambda i=i: sess.process_stereo_frames(imgs[i][0], imgs[i][1], rel,
+                                                         imgs[i][2], i, camera1=camera1))
+                 for i in range(len(imgs))]
+        return sess, steps
+
+    sess, steps = session()
+    run_stereo(device, sess, steps[:WARM_FRAMES])           # warm pass
+    sess, steps = session()
+    maps = []
+    reset_launch_counts()
+    run = run_stereo(device, sess, steps, [map_recorder(maps)])
+    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    classes = check_stereo_launches(run, "mixed rig")
+    pose_err, count_err, _ = hold_run(run["results"], maps, ref, "mix_", 1.0, "mixed rig")
+    _, ok, remap, cam1_16 = sess._stereo_prep
+    cam_err = float(np.abs(cam1_16.cpu().numpy() - ref["mix_cam1_16"]).max())
+    kv = sess.map.kf_valid.cpu().numpy()
+    post = [k for k in np.flatnonzero(kv) if k >= 1]
+    if (not ok or remap is None or cam_err > STEREO_CAM1_ATOL
+            or not np.array_equal(kv, ref["mix_final_kf_valid"])
+            or not np.array_equal(sess.map.kf_cam.cpu().numpy()[post],
+                                  ref["mix_final_kf_cam"][post])):
+        raise AssertionError(f"mixed rig: rescale active {ok and remap is not None}, cam1_16 "
+                             f"err {cam_err:.3g} (limit {STEREO_CAM1_ATOL}), or the post-init "
+                             f"keyframes' intrinsics differ from JAX's")
+    rescale_ms = cuda_ms(lambda: remap_bilinear(imgs[0][1], remap), iters=50)
+    pair_ms = [t for t, o in zip(run["ms"], run["obs"]) if not o["was_init"]
+               and not o["keyframe"]]
+    phase("stereo", f"mixed-FOV rig, {len(pairs)} pairs at {stereo_world.W}x{stereo_world.H} "
+                    f"through process_stereo_frames (frames equal to the JAX run's by "
+                    f"SHA-256): rescale active, cam1_16 within {cam_err:.3g} of JAX's (limit "
+                    f"{STEREO_CAM1_ATOL}); every state and keyframe flag as JAX, max pose err "
+                    f"{pose_err:.3g} unscaled (limit {POSE_ATOL}, logged frames to "
+                    f"{max(LOGGED['mix_'][0].values())}), max tracked diff {count_err}; masks "
+                    f"after all "
+                    f"{len(maps)} mapping events and the post-init keyframes' intrinsics as "
+                    f"JAX's; launches {classes}, totals {totals}")
+    phase("stereo", f"mixed-FOV rig wall ms (synchronized, after a warm pass over frames "
+                    f"0-{WARM_FRAMES - 1}): pair frame "
+                    f"(two frontends + tracking) median {statistics.median(pair_ms):.3f} (min "
+                    f"{min(pair_ms):.3f}, max {max(pair_ms):.3f}, n = {len(pair_ms)}); the "
+                    f"bootstrap pair {run['ms'][0]:.3f}; the secondary's rescale (one bilinear "
+                    f"remap, CUDA events) {rescale_ms:.5f} ms a frame; {card}")
+    return {"totals": totals, "pair_ms": pair_ms, "rescale_ms": rescale_ms}
+
+
+def check_camera_runs(device, card: str) -> dict:
+    """Phase 11, parts 4 and 5: the distorted photoreal scene in both
+    undistortion modes, and a photoreal session with UseOrientation=True."""
+    from mageslam_tpu_torch.ops.undistort import undistort_image
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    ref = load_npz(CAMERAS_FIXTURE, CAMERAS_KP_FIXTURE, ORIENT_FIXTURE)
+    photo = load_npz(PHOTOREAL_FIXTURE)
+    frames = list(ref["dist_frames"])
+    out = {}
+    runs = (("und_", CAMERAS_FIXTURE, dict(settings=camera_settings(undistort_pixels=True),
+                                           cam=None, camera=ref["dist_camera"]), frames,
+             ref["dist_timestamps"]),
+            ("kp_", CAMERAS_KP_FIXTURE, dict(settings=camera_settings(undistort_pixels=False),
+                                             cam=None, camera=ref["dist_camera"]), frames,
+             ref["dist_timestamps"]),
+            ("orient_", ORIENT_FIXTURE, dict(settings=camera_settings(UseOrientation=True),
+                                             cam=photo["cam"]),
+             list(photo["frames"][:ORIENT_FRAMES]), photo["timestamps"]))
+    for prefix, path, kw, imgs, ts in runs:
+        maps = []
+        draws = ReplayDraws.from_npz(path, device, prefix=prefix)
+        reset_launch_counts()
+        run = run_from_frame0(device, imgs, draws, [map_recorder(maps)], size=(320, 180),
+                              timestamps=ts, **kw)
+        totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"),
+                          launch_counts()))
+        sess = run["sess"]
+        k = float(ref[prefix + "map_scale"]) / sess.map_scale
+        if abs(k - 1.0) > SCALE_TOL or any(draws.remaining().values()):
+            raise AssertionError(f"{prefix}: map scale ratio {k:.6f}, draws left "
+                                 f"{draws.remaining()}")
+        pose_err, count_err, diffs = hold_run(run["results"], maps, ref, prefix, k, prefix)
+        classes = check_launch_classes(run, prefix)
+        kf = [r.frame_id for r in run["results"] if r.is_keyframe]
+        tracked_ms = [t for t, o in zip(run["ms"], run["obs"])
+                      if not o["was_init"] and not o["keyframe"] and not o["retrained"]]
+        what = {"und_": "distorted Poly3K scene, UndistortImagePixels on",
+                "kp_": "distorted Poly3K scene, UndistortImagePixels off (keypoints only)",
+                "orient_": "photoreal, UseOrientation=True"}[prefix]
+        phase("cameras", f"{what}: {len(imgs)} frames from a bare session, JAX draws "
+                         f"replayed: every state and keyframe flag as JAX (adopted at "
+                         f"{run.get('adopt_frame')}, keyframes {kf}), max pose err "
+                         f"{pose_err:.3g} (t scaled by {k:.6f}; limit {POSE_ATOL}), max "
+                         f"tracked diff {count_err}; mask entries differing from JAX's after "
+                         f"each mapping event {({f: d for f, d in diffs.items() if any(d.values())}) or 'none'}; "
+                         f"launches {classes}, totals {totals}; tracked frame wall ms median "
+                         f"{statistics.median(tracked_ms):.3f} (n = {len(tracked_ms)}); {card}")
+        out[prefix] = {"totals": totals, "tracked_ms": tracked_ms}
+    img = torch.from_numpy(frames[0]).to(device).to(torch.float32)
+    cam16 = torch.from_numpy(ref["dist_camera"]).to(device)
+    undistort_image(img, cam16)                                  # the cached map
+    und_ms = cuda_ms(lambda: undistort_image(img, cam16), iters=50)
+    phase("cameras", f"undistort_image (UndistortImagePixels: one bilinear remap on the "
+                     f"cached rectify map) {und_ms:.5f} ms a 320x180 frame (CUDA events); "
+                     f"{card}")
+    out["undistort_ms"] = und_ms
+    return out
+
+
+def check_stereo_and_cameras(device, card: str) -> dict:
+    """Phase 11."""
+    ref = load_npz(STEREO_FIXTURE)
+    out, t0 = {}, time.perf_counter()
+    for name, check in (("pair", lambda: check_stereo_pair(device, ref)),
+                        ("rig", lambda: check_rig_session(device, ref, card)),
+                        ("mixed", lambda: check_mixed_rig(device, ref, card)),
+                        ("cameras", lambda: check_camera_runs(device, card))):
+        out[name] = check()
+        phase("time", f"phase 11, {name}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+    return {**out, **out.pop("cameras")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2182,6 +2662,8 @@ def main() -> int:
     lap("phase 9 (relocalization)")
     loop = check_loop_closure(device, card, window_sess)
     lap("phase 10 (loop closure)")
+    stereo = check_stereo_and_cameras(device, card)
+    lap("phase 11 (stereo rig and cameras)")
 
     # the standalone kernel's top-level row: the adoption's vocabulary call
     ham_row = init["hamming"][(1024, 64)]
@@ -2195,7 +2677,12 @@ def main() -> int:
                    "frames_0_54_own_draws": init["own_totals"][kernel],
                    "photoreal_frames_0_79": photoreal["totals"][kernel],
                    "reloc_frames_30_37": reloc["totals"][kernel],
-                   "loop_scenes_detection": loop["totals"][kernel]}
+                   "loop_scenes_detection": loop["totals"][kernel],
+                   "stereo_rig_frames_0_39": stereo["rig"]["totals"][kernel],
+                   "stereo_mixed_rig_frames_0_23": stereo["mixed"]["totals"][kernel],
+                   "distorted_undistort_pixels_frames_0_39": stereo["und_"]["totals"][kernel],
+                   "distorted_keypoints_frames_0_39": stereo["kp_"]["totals"][kernel],
+                   "oriented_photoreal_frames_0_29": stereo["orient_"]["totals"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def new_shapes(kind: str) -> dict:
@@ -2240,7 +2727,7 @@ def main() -> int:
                                     "composite_int_mm_ms", "valid_pairs", "device_us_scan",
                                     "device_us_gate")},
          "init": init["two_way"], "init_synthetic": two_way_init,
-         "reloc_b4": new_shapes("two_way")},
+         "reloc_b4": new_shapes("two_way"), "stereo_pair": stereo["pair"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

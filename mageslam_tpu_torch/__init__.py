@@ -7,8 +7,9 @@ kernels live in `csrc/` and are built with `nvcc` at first use
 CPU tensors only.
 
 This package never imports jax, nor anything of `mageslam_tpu`. It keeps
-its own copy of the settings (`config.py`) and of the benchmark's synthetic
-scene (`bench_world.py`); JAX state crosses over through the JAX package's
+its own copy of the settings (`config.py`), of the device presets
+(`device/presets.py`), of the benchmark's synthetic scene (`bench_world.py`)
+and of the mixed-FOV stereo rig's (`stereo_world.py`); JAX state crosses over through the JAX package's
 on-disk snapshot format (`interop.py`). The entry points (`SlamSession`,
 `SlamSession.from_jax_snapshot`, `interop.load_jax_snapshot`) run on the
 card unless the caller passes `device="cpu"`.

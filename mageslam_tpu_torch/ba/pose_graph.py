@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.se3 import _so3_left_jacobian, exp_so3, log_so3
+from ..ops.indexing import add_at_
 
 _EPS = 1e-12
 
@@ -128,13 +129,13 @@ def optimize_pose_graph(problem: PoseGraphProblem, iterations: int = 10) -> Sim3
         Jj = Jj * keep[ej][:, None, None]
         Jwi, Jwj = Ji * w[:, None, None], Jj * w[:, None, None]
         H = torch.zeros((K, K, 7, 7), dtype=torch.float32, device=dev)
-        H = H.index_put((ei, ei), torch.einsum("eij,eik->ejk", Jwi, Ji), accumulate=True)
-        H = H.index_put((ej, ej), torch.einsum("eij,eik->ejk", Jwj, Jj), accumulate=True)
-        H = H.index_put((ei, ej), torch.einsum("eij,eik->ejk", Jwi, Jj), accumulate=True)
-        H = H.index_put((ej, ei), torch.einsum("eij,eik->ejk", Jwj, Ji), accumulate=True)
+        add_at_(H, (ei, ei), torch.einsum("eij,eik->ejk", Jwi, Ji))
+        add_at_(H, (ej, ej), torch.einsum("eij,eik->ejk", Jwj, Jj))
+        add_at_(H, (ei, ej), torch.einsum("eij,eik->ejk", Jwi, Jj))
+        add_at_(H, (ej, ei), torch.einsum("eij,eik->ejk", Jwj, Ji))
         b = torch.zeros((K, 7), dtype=torch.float32, device=dev)
-        b = b.index_put((ei,), torch.einsum("eij,ei->ej", Jwi, -r), accumulate=True)
-        b = b.index_put((ej,), torch.einsum("eij,ei->ej", Jwj, -r), accumulate=True)
+        add_at_(b, (ei,), torch.einsum("eij,ei->ej", Jwi, -r))
+        add_at_(b, (ej,), torch.einsum("eij,ei->ej", Jwj, -r))
         return H, b
 
     def solve(H, b, lam):

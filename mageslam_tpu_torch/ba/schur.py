@@ -16,10 +16,11 @@ One LM iteration:
 Fixed cameras get zero Jacobians and an identity diagonal block, so their
 update is exactly zero; invalid slots carry zero weights throughout.
 
-The scatter-adds are `index_put_(accumulate=True)`. On CUDA it adds float32
-duplicates with atomics in no fixed order, so the normal equations, and
-with them the step, agree with the reference to float32 rounding of the
-sums (relative 1e-6 a block), not bit for bit. Nothing here reads the device
+The scatter-adds are `ops/indexing.add_at_`: in index order on the CPU,
+`index_put_(accumulate=True)` on CUDA, whose float32 sums of duplicates
+take another order, so the normal equations, and with them the step, agree
+with the reference to float32 rounding of the sums (relative 1e-6 a
+block), not bit for bit. Nothing here reads the device
 from the host: a failed Cholesky is detected and replaced by the LU solve
 on the device.
 """
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.se3 import Pose, retract
+from ..ops.indexing import add_at_
 from .problem import BAProblem, BAState
 from .residuals import (ObsResiduals, TetherResiduals, observation_residuals,
                         robust_cost, tether_residuals)
@@ -69,8 +71,7 @@ class NormalEquations(NamedTuple):
 
 def _added(shape, index, values, device) -> torch.Tensor:
     """zeros(shape).at[index].add(values): duplicates are summed."""
-    return torch.zeros(shape, dtype=torch.float32, device=device).index_put_(
-        index, values, accumulate=True)
+    return add_at_(torch.zeros(shape, dtype=torch.float32, device=device), index, values)
 
 
 def build_normal_equations(problem: BAProblem, obs: ObsResiduals,
@@ -106,12 +107,12 @@ def build_normal_equations(problem: BAProblem, obs: ObsResiduals,
         J1 = teth.Jc1 * (~problem.cam_fixed)[c1][:, None, None]
         J2 = teth.Jc2 * (~problem.cam_fixed)[c2][:, None, None]
         w = teth.w[:, None, None]
-        H_cc.index_put_((c1, c1), torch.einsum("tij,tik->tjk", J1 * w, J1), accumulate=True)
-        H_cc.index_put_((c2, c2), torch.einsum("tij,tik->tjk", J2 * w, J2), accumulate=True)
-        H_cc.index_put_((c1, c2), torch.einsum("tij,tik->tjk", J1 * w, J2), accumulate=True)
-        H_cc.index_put_((c2, c1), torch.einsum("tij,tik->tjk", J2 * w, J1), accumulate=True)
-        g_c.index_put_((c1,), torch.einsum("tij,ti->tj", J1 * w, -teth.r), accumulate=True)
-        g_c.index_put_((c2,), torch.einsum("tij,ti->tj", J2 * w, -teth.r), accumulate=True)
+        add_at_(H_cc, (c1, c1), torch.einsum("tij,tik->tjk", J1 * w, J1))
+        add_at_(H_cc, (c2, c2), torch.einsum("tij,tik->tjk", J2 * w, J2))
+        add_at_(H_cc, (c1, c2), torch.einsum("tij,tik->tjk", J1 * w, J2))
+        add_at_(H_cc, (c2, c1), torch.einsum("tij,tik->tjk", J2 * w, J1))
+        add_at_(g_c, (c1,), torch.einsum("tij,ti->tj", J1 * w, -teth.r))
+        add_at_(g_c, (c2,), torch.einsum("tij,ti->tj", J2 * w, -teth.r))
 
     return NormalEquations(H_cc=H_cc, V=V, Wc=Wc, g_c=g_c, g_p=g_p)
 

@@ -7,9 +7,13 @@ A camera is a flat (16,) float32 parameter vector, batched as (K, 16):
 `model` is 0 = pinhole, 1 = poly3k, 2 = rational6k. Distortion is evaluated
 branchlessly: unused coefficients are zero and the rational denominator
 reduces to 1, so one code path serves all three models.
+`LinearFocalLengthModel` gives a device's vector at a focus value
+(device/presets.py).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -115,3 +119,84 @@ def undistort_pixels(cam: torch.Tensor, px: torch.Tensor,
     u = cam[..., 0] * xn[..., 0] + cam[..., 2]
     v = cam[..., 1] * xn[..., 1] + cam[..., 3]
     return torch.stack([u, v], dim=-1)
+
+
+def make_rational6k(fx, fy, cx, cy, k1, k2, k3, k4, k5, k6, p1, p2, width, height,
+                    device=None) -> torch.Tensor:
+    """Reference coefficient order: k1..k6, p1, p2."""
+    v = make_pinhole(fx, fy, cx, cy, width, height, device)
+    v[4], v[5], v[6], v[7], v[8], v[9] = k1, k2, k3, k4, k5, k6
+    v[10], v[11] = p1, p2
+    v[14] = MODEL_RATIONAL6K
+    return v
+
+
+def fx(cam):  # noqa: D103
+    return cam[..., 0]
+
+
+def fy(cam):  # noqa: D103
+    return cam[..., 1]
+
+
+def cx(cam):  # noqa: D103
+    return cam[..., 2]
+
+
+def cy(cam):  # noqa: D103
+    return cam[..., 3]
+
+
+def image_size(cam):
+    """(width, height)."""
+    return cam[..., 12], cam[..., 13]
+
+
+def k_matrix(cam: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) intrinsics matrix."""
+    z = torch.zeros_like(cam[..., 0])
+    o = torch.ones_like(cam[..., 0])
+    return torch.stack([
+        torch.stack([cam[..., 0], z, cam[..., 2]], dim=-1),
+        torch.stack([z, cam[..., 1], cam[..., 3]], dim=-1),
+        torch.stack([z, z, o], dim=-1),
+    ], dim=-2)
+
+
+class LinearFocalLengthModel(NamedTuple):
+    """Focus-dependent intrinsics (Data.h:263-380): fx and fy are linear in
+    the focus value, f(focus) = m * focus + b, in units of the calibration
+    size; cx, cy are fixed. `camera_at` gives the (16,) vector for a focus
+    value and a resolution."""
+
+    fx_m: float
+    fx_b: float
+    fy_m: float
+    fy_b: float
+    cx: float
+    cy: float
+    calibration_width: int
+    calibration_height: int
+    focal_bound_lo: float = 0.0
+    focal_bound_hi: float = 0.0
+    distortion: tuple[float, ...] = ()  # (), (k1,k2,k3,p1,p2) or (k1..k6,p1,p2)
+
+    def camera_at(self, focus: float, width: int, height: int,
+                  device=None) -> torch.Tensor:
+        sx = width / self.calibration_width
+        sy = height / self.calibration_height
+        f = torch.clamp(torch.tensor(focus, dtype=torch.float32), self.focal_bound_lo,
+                        self.focal_bound_hi if self.focal_bound_hi > 0 else float("inf"))
+        fx_v = (self.fx_m * f + self.fx_b) * self.calibration_width * sx
+        fy_v = (self.fy_m * f + self.fy_b) * self.calibration_height * sy
+        cx_v = self.cx * self.calibration_width * sx
+        cy_v = self.cy * self.calibration_height * sy
+        d = self.distortion
+        if len(d) == 0:
+            return make_pinhole(fx_v, fy_v, cx_v, cy_v, width, height, device)
+        if len(d) == 5:
+            return make_poly3k(fx_v, fy_v, cx_v, cy_v, *d, width, height, device=device)
+        if len(d) == 8:
+            return make_rational6k(fx_v, fy_v, cx_v, cy_v, *d, width, height,
+                                   device=device)
+        raise ValueError("distortion must have 0, 5 (poly3k) or 8 (rational6k) coeffs")

@@ -36,10 +36,6 @@ class FrameFeatures(NamedTuple):
 
 def _level_features(img: torch.Tensor, n_level: int, scale: float, level: int, fes):
     """Detect and describe on one pyramid level; exactly n_level slots."""
-    if fes.UseOrientation:
-        raise NotImplementedError(
-            "UseOrientation=True (steered BRIEF, mageslam_tpu/ops/orb.py:82 "
-            "oriented_descriptors) is not ported yet")
     score = fast_mod.fast_score_map(img, fes.FastThreshold)
     score = fast_mod.nms3x3(score)
     xy, resp, valid = fast_mod.extract_candidates(score, CANDIDATES_PER_LEVEL,
@@ -62,9 +58,16 @@ def _level_features(img: torch.Tensor, n_level: int, scale: float, level: int, f
     xy, resp, valid = xy[idx], resp[idx], valid[idx]
 
     blurred = image_mod.gaussian_blur(img, fes.GaussianKernelSize, 2.0)
-    angle = torch.zeros((n_level,), dtype=torch.float32, device=img.device)
-    planes = orb_mod.descriptor_bit_planes(blurred, fes.PatchSize)
-    desc = orb_mod.gather_descriptors(planes, xy)
+    if fes.UseOrientation:
+        angle_map = image_mod.ic_angle_map(img, fes.PatchSize // 2)
+        ax = torch.clamp(xy[:, 0].to(torch.int64), 0, img.shape[1] - 1)
+        ay = torch.clamp(xy[:, 1].to(torch.int64), 0, img.shape[0] - 1)
+        angle = torch.where(valid, angle_map[ay, ax], 0.0)
+        desc = orb_mod.oriented_descriptors(blurred, xy, angle, fes.PatchSize)
+    else:
+        angle = torch.zeros((n_level,), dtype=torch.float32, device=img.device)
+        planes = orb_mod.descriptor_bit_planes(blurred, fes.PatchSize)
+        desc = orb_mod.gather_descriptors(planes, xy)
     octave = torch.full((n_level,), level, dtype=torch.int32, device=img.device)
     return xy * scale, resp, octave, angle, desc, valid
 

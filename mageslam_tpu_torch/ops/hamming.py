@@ -24,22 +24,34 @@ LAUNCHES = 0
 
 def popcount32(v: torch.Tensor) -> torch.Tensor:
     """Per-element popcount of int32 bit patterns (all 32 bits, sign bit
-    included). SWAR on the zero-extended int64 value, so no shift drags the
-    sign bit in and no step overflows."""
-    v = v.to(torch.int64) & 0xFFFFFFFF
+    included). SWAR in int32 on the low 31 bits, whose value is never
+    negative, so no shift drags the sign bit in and no step overflows; the
+    sign bit is counted apart."""
+    sign = (v < 0).to(torch.int32)
+    v = v & 0x7FFFFFFF
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+    v = v + (v >> 8)
+    return ((v + (v >> 16)) & 0x3F) + sign
 
 
 def hamming_matrix_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, M) int32 distances: XOR, popcount, sum over the 8 words."""
-    out = torch.zeros((desc_a.shape[0], desc_b.shape[0]), dtype=torch.int32,
-                      device=desc_a.device)
+    """(N, M) int32 distances: XOR, popcount, sum over the 8 words. The
+    popcount is `popcount32`'s, its per-byte counts (at most 8 a word)
+    summed over the words before the bytes are added up once."""
+    shape = (desc_a.shape[0], desc_b.shape[0])
+    acc = torch.zeros(shape, dtype=torch.int32, device=desc_a.device)
+    sign = torch.zeros(shape, dtype=torch.int32, device=desc_a.device)
     for k in range(WORDS):
-        out += popcount32(desc_a[:, k, None] ^ desc_b[None, :, k])
-    return out
+        v = desc_a[:, k, None] ^ desc_b[None, :, k]
+        sign += v < 0
+        v = v & 0x7FFFFFFF
+        v = v - ((v >> 1) & 0x55555555)
+        v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+        acc += (v + (v >> 4)) & 0x0F0F0F0F          # bytes <= 64 after 8 words
+    v = (acc & 0x00FF00FF) + ((acc >> 8) & 0x00FF00FF)
+    return (v & 0xFFFF) + (v >> 16) + sign
 
 
 def tile_bit_order() -> torch.Tensor:

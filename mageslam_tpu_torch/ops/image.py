@@ -1,5 +1,6 @@
-"""Image ops: Gaussian blur, bilinear resize, pyramid (port of
-mageslam_tpu/ops/image.py). Images are float32 [0, 255], (H, W)."""
+"""Image ops: Gaussian blur, bilinear resize, pyramid, the intensity-centroid
+angle map (port of mageslam_tpu/ops/image.py). Images are float32 [0, 255],
+(H, W)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,21 @@ def features_per_level(n_features: int, num_levels: int,
         n_desired *= factor
     out.append(max(n_features - total, 0))
     return out
+
+
+def ic_angle_map(img: torch.Tensor, half_patch: int) -> torch.Tensor:
+    """Dense intensity-centroid angle map (radians): atan2(m01, m10) over
+    the circular patch of radius half_patch at every pixel (ICAngles,
+    OpenCVModified.cpp:399), zero outside the image. The moments are
+    correlations in float64, rounded to float32 once: on an integer image
+    they are exact, as the reference's float32 sums of integers are."""
+    r = half_patch
+    ys, xs = np.mgrid[-r:r + 1, -r:r + 1]
+    mask = (xs * xs + ys * ys) <= (r * r + 1)     # the standard ORB circle
+    # correlation with the flipped kernels, as the reference computes them
+    # (the kernels are antisymmetric: the moments come out negated)
+    flipped = np.stack([xs * mask, ys * mask])[:, ::-1, ::-1]
+    weights = torch.from_numpy(np.ascontiguousarray(flipped, dtype=np.float64))
+    m = F.conv2d(img.to(torch.float64)[None, None],
+                 weights.to(img.device)[:, None], padding=r)[0].to(torch.float32)
+    return torch.atan2(m[1], m[0])

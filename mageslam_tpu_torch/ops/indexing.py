@@ -15,6 +15,12 @@
   equal in-range indices has no defined winner on CUDA: callers pass
   distinct ones. `add_drop` sums float32 duplicates in no fixed order on
   CUDA (atomics), so sums agree to rounding only.
+- `add_at_` is `x.at[index].add(v)` for float banks, in place: on the CPU
+  it adds the rows one after another in index order (`index_add_` over
+  the flattened indexed dims), as the reference's scatter-add does, where
+  `index_put_(accumulate=True)` adds from parallel threads with atomics in
+  an order that moves with their timing, so a loaded machine gave other
+  sums on the same inputs. On CUDA it is `index_put_(accumulate=True)`.
 - `pair_index` turns (row, column) pairs into indices of the flattened
   (rows x columns) bank, -1 (dropped) where either is out of range, for the
   reference's two-index scatters.
@@ -77,6 +83,22 @@ def add_drop(bank: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
     padded.index_put_((_sink(idx, n),), value.expand(idx.shape + bank.shape[1:]),
                       accumulate=True)
     return padded[:n]
+
+
+def add_at_(bank: torch.Tensor, index: tuple, values: torch.Tensor) -> torch.Tensor:
+    """Add `values` into `bank` at the index tuple over its leading dims,
+    duplicates summed; returns `bank`."""
+    if bank.device.type != "cpu":
+        return bank.index_put_(index, values, accumulate=True)
+    lead, rest = bank.shape[:len(index)], bank.shape[len(index):]
+    flat = torch.zeros((), dtype=torch.int64)
+    for ix, n in zip(index, lead):
+        ix = ix.to(torch.int64)
+        flat = flat * n + torch.where(ix < 0, ix + n, ix)
+    flat = flat.reshape(-1)
+    bank.view((-1,) + rest).index_add_(
+        0, flat, values.expand(flat.shape + rest).reshape((-1,) + rest))
+    return bank
 
 
 def pair_index(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,

@@ -7,6 +7,9 @@ the reference's uint32 bits; one row per keypoint is then gathered. The
 256 comparisons are 256 eager launches per frame here (XLA fused them into
 a few passes): the second candidate for a fused kernel after FAST.
 
+`oriented_descriptors` (UseOrientation) rotates the pattern by each
+keypoint's angle and samples only at the keypoints.
+
 `brief_pattern` is the reference's own numpy code with the same seed, so
 the two packages describe a pixel with the same bits.
 """
@@ -66,3 +69,25 @@ def gather_descriptors(planes: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(xy[:, 0].to(torch.int64), 0, planes.shape[2] - 1)
     y = torch.clamp(xy[:, 1].to(torch.int64), 0, planes.shape[1] - 1)
     return planes[:, y, x].T.contiguous()
+
+
+def oriented_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
+                         patch_size: int = 15) -> torch.Tensor:
+    """Steered BRIEF: the pattern rotated by each keypoint's angle, each
+    offset rounded (half to even) and read nearest-neighbour
+    (OpenCVModified.cpp:502-560). xy (N, 2), angle (N,) radians →
+    (N, 8) int32 words."""
+    pattern = torch.from_numpy(brief_pattern(patch_size).astype(np.float32)).to(
+        blurred.device)                                          # (256, 2, 2)
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    ox, oy = pattern[None, ..., 0], pattern[None, ..., 1]        # (1, 256, 2)
+    rx = torch.round(ox * ca[:, None, None] - oy * sa[:, None, None])
+    ry = torch.round(ox * sa[:, None, None] + oy * ca[:, None, None])
+    h, w = blurred.shape
+    px = torch.clamp(xy[:, None, None, 0] + rx, 0, w - 1).to(torch.int64)
+    py = torch.clamp(xy[:, None, None, 1] + ry, 0, h - 1).to(torch.int64)
+    vals = blurred[py, px]                                       # (N, 256, 2)
+    bits = (vals[..., 0] < vals[..., 1]).reshape(-1, DESCRIPTOR_WORDS, 32)
+    values = torch.from_numpy(_BIT_VALUES.astype(np.int64)).to(blurred.device)
+    words = torch.sum(torch.where(bits, values, 0), dim=-1)
+    return words.to(torch.int32)

@@ -65,18 +65,19 @@ class ReplayDraws:
         self.device = torch.device(device)
 
     @classmethod
-    def from_npz(cls, path: str, device, kinds=KINDS) -> "ReplayDraws":
+    def from_npz(cls, path: str, device, kinds=KINDS, prefix: str = "") -> "ReplayDraws":
         """The draws `tools/export_jax_state.py` stored with the keys they
         came from: `init_att{j}_draws`, `init_third{j}_draws`,
-        `init_vocab{j}_draws`, `reloc{j}_draws`; only those of `kinds`
-        (a session started from a snapshot has used the others)."""
+        `init_vocab{j}_draws`, `reloc{j}_draws`, each after `prefix` (a file
+        holding several sessions); only those of `kinds` (a session started
+        from a snapshot has used the others)."""
         with np.load(path) as z:
             draws = {}
             for kind in kinds:
-                prefix = PREFIXES[kind]
+                prefix_of = prefix + PREFIXES[kind]
                 j, arrays = 0, []
-                while f"{prefix}{j}_draws" in z.files:
-                    arrays.append(z[f"{prefix}{j}_draws"])
+                while f"{prefix_of}{j}_draws" in z.files:
+                    arrays.append(z[f"{prefix_of}{j}_draws"])
                     j += 1
                 draws[kind] = arrays
         return cls(draws, device)

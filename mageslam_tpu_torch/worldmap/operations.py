@@ -3,8 +3,7 @@ culling (port of mageslam_tpu/worldmap/operations.py; Map/Map.cpp and
 ThreadSafeMap.cpp as masked scatters and gathers over the banks).
 
 Every function returns a new MapState and reads nothing back to the host:
-slots and counts stay tensors. `add_keyframe_tether` of the reference
-module comes with stereo.
+slots and counts stay tensors.
 """
 
 from __future__ import annotations
@@ -22,11 +21,20 @@ def row_of(bank: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return bank.index_select(0, k.reshape(1))[0]
 
 
+def _slot_writer(ok: torch.Tensor, s: torch.Tensor):
+    """wr(bank, value): `bank` with row s (1,) set to value where ok, left
+    as it is where not."""
+    def wr(bank, value):
+        value = torch.as_tensor(value, dtype=bank.dtype, device=bank.device)
+        value = torch.where(ok, value, bank.index_select(0, s)[0])
+        return bank.index_put((s,), value[None])
+    return wr
+
+
 def insert_keyframe(state: MapState, pose: Pose, cam, frame_id, kp_xy, kp_octave,
                     desc, kp_valid, assoc, fixed=False, immortal=False):
     """ThreadSafeMap::InsertKeyframe. Returns (state, slot); the slot is a
     0-d int32 tensor, -1 (and the write dropped) when the bank is full."""
-    dev = state.kf_valid.device
     free = ~state.kf_valid
     slot = torch.argmax(free.to(torch.int32)).to(torch.int32)    # first free slot
     ok = torch.any(free)
@@ -36,11 +44,7 @@ def insert_keyframe(state: MapState, pose: Pose, cam, frame_id, kp_xy, kp_octave
     assoc_ok = (assoc >= 0) & state.mp_valid[torch.where(assoc >= 0, assoc, 0)]
     assoc_clean = torch.where(assoc_ok, assoc, -1)
 
-    def wr(bank, value):
-        value = torch.as_tensor(value, dtype=bank.dtype, device=dev)
-        value = torch.where(ok, value, bank.index_select(0, s)[0])
-        return bank.index_put((s,), value[None])
-
+    wr = _slot_writer(ok, s)
     new = state._replace(
         kf_valid=wr(state.kf_valid, True),
         kf_fixed=wr(state.kf_fixed, fixed),
@@ -124,6 +128,25 @@ def merge_map_points(state: MapState, src: torch.Tensor, dst: torch.Tensor,
     dup = torch.any(eq & preferred, dim=-1)
     return state._replace(kf_assoc=torch.where(dup, -1, new_assoc),
                           mp_valid=state.mp_valid & ~any_drop(P, srcs, want))
+
+
+def add_keyframe_tether(state: MapState, owner, origin, kind, pose: Pose,
+                        distance=1.0, weight=1.0) -> MapState:
+    """Persist a constraint between two keyframes (Data/Tether.h:12-68) in
+    the first free tether slot; every BA window holding both keyframes
+    assembles it (worldmap/ba_window.py). Dropped when the bank is full.
+    `pose` is the measured origin→owner delta T_owner ∘ T_origin⁻¹."""
+    free = state.tether_weight <= 0
+    ok = torch.any(free)
+    wr = _slot_writer(ok, torch.where(ok, torch.argmax(free.to(torch.int32)), 0).reshape(1))
+    return state._replace(
+        tether_owner=wr(state.tether_owner, owner),
+        tether_origin=wr(state.tether_origin, origin),
+        tether_kind=wr(state.tether_kind, kind),
+        tether_pose=Pose(wr(state.tether_pose.R, pose.R), wr(state.tether_pose.t, pose.t)),
+        tether_distance=wr(state.tether_distance, distance),
+        tether_weight=wr(state.tether_weight, weight),
+    )
 
 
 def remove_keyframes(state: MapState, remove: torch.Tensor,

@@ -5,8 +5,9 @@ or a synthetic problem with tethers) and cross as numpy arrays.
 
 Tolerances: residuals and Jacobians atol 1e-4 relative to pixel-scale values
 of up to a few hundred; the normal equations agree to a relative 1e-5 of
-their largest block (float32 sums in another order: `index_put_` against
-XLA's scatter-add); one damped solve agrees to atol 2e-4 on steps of up to
+their largest block (float32 sums in another order: `ops/indexing.add_at_`
+against XLA's scatter-add); `add_at_` itself sums in index order, bit for
+bit as a sequential loop, and the same on every call; one damped solve agrees to atol 2e-4 on steps of up to
 0.1; poses after LM steps agree to atol 1e-4 and points to 1e-4, or 5e-4
 after four and more steps (a relative 1e-4 of depths of 4 to 7 units, the
 direction a 1.4-unit baseline constrains least); outlier masks and every
@@ -170,6 +171,30 @@ def test_normal_equations(request, which):
         want = np.asarray(getattr(jeq, name))
         close(getattr(teq, name), want, 1e-5 * max(np.abs(want).max(), 1.0), name)
     assert float(teq.H_cc.abs().max()) > 1e3
+
+
+@pytest.mark.parametrize("rest", [(), (6, 3)])
+def test_add_at_sums_in_index_order(rest):
+    """The normal equations' scatter-add on the CPU: duplicates summed one
+    after another in index order (a float32 loop, bit for bit), negative
+    indices wrapped as `index_put_` wraps them, and the same bits on every
+    call (`index_put_(accumulate=True)` adds from parallel threads there)."""
+    from mageslam_tpu_torch.ops.indexing import add_at_
+
+    rng = np.random.RandomState(3)
+    rows = rng.randint(-4, 4, 5000)
+    cols = rng.randint(0, 7, 5000)
+    vals = (rng.standard_normal((5000,) + rest) * 10.0 ** rng.randint(-3, 4, (5000,) + rest)
+            ).astype(np.float32)
+    want = np.zeros((4, 7) + rest, np.float32)
+    for r, c, v in zip(rows, cols, vals):
+        want[r, c] += v
+    args = ((torch.from_numpy(rows), torch.from_numpy(cols)), torch.from_numpy(vals))
+    for _ in range(3):
+        got = add_at_(torch.zeros((4, 7) + rest), *args)
+        np.testing.assert_array_equal(got.numpy(), want)
+    close(torch.zeros((4, 7) + rest).index_put_(*args, accumulate=True), want,
+          1e-5 * np.abs(want).max())
 
 
 def test_points_fixed_zeroes_the_point_blocks(window):

@@ -17,6 +17,8 @@ from mageslam_tpu_torch import MageSlamSettings, SlamSession, bench_world, golde
 from mageslam_tpu_torch import config as port_config
 from mageslam_tpu_torch import interop
 
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
 MAP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_map.npz")
@@ -58,6 +60,8 @@ def test_port_stands_alone(tmp_path):
     code = (
         "import sys\n"
         f"assert not any(p and {REPO!r} in p for p in sys.path), sys.path\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
         "import mageslam_tpu_torch as m\n"
         "from mageslam_tpu_torch import bench_world\n"
         "assert m.__file__.startswith(sys.argv[1]), m.__file__\n"

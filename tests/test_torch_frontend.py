@@ -27,6 +27,8 @@ from mageslam_tpu_torch.geometry.camera import make_pinhole
 from mageslam_tpu_torch.ops import anms, fast, image, orb
 from mageslam_tpu_torch.ops.frontend import CANDIDATES_PER_LEVEL, detect_and_compute
 
+torch.set_num_threads(2)
+
 FES = golden_path_settings().MonoSettings.MonoCamera.FeatureExtractorSettings
 SIZES = ["640x480", "160x120"]
 

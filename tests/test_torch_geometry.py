@@ -22,6 +22,8 @@ from mageslam_tpu_torch.tracking import frame_state as fs
 from mageslam_tpu_torch.tracking.pose_estimation import estimate_next_pose_from_history
 from mageslam_tpu_torch.worldmap.map_state import predict_octave
 
+torch.set_num_threads(2)
+
 
 def T(a):
     return torch.from_numpy(np.array(a))

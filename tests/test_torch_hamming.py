@@ -16,6 +16,8 @@ from mageslam_tpu.ops import matching as jmatch
 from mageslam_tpu.ops.pallas_kernels import hamming_matrix_pallas
 from mageslam_tpu_torch.ops import hamming, matching
 
+torch.set_num_threads(2)
+
 
 def full_range_words(rng, rows):
     """(rows, 8) uint32 words over the whole range, bit 31 included."""

@@ -127,8 +127,7 @@ def test_with_tethers_gives_the_same_map(fixture):
                              map_scale)
     assert not torch.allclose(c[0].kf_pose.t, a[0].kf_pose.t, atol=1e-3)
     assert bool(torch.isfinite(c[0].kf_pose.t).all())
-    # zero-weight tethers add exact zeros; the float leaves still move in the
-    # last bit, because `index_put_` sums duplicates in no fixed order
+    # zero-weight tethers add exact zeros to the normal equations
     for (name, x), y in zip(interop.to_numpy(a[0]).items(), interop.to_numpy(b[0]).values()):
         if name.startswith("tether_"):
             continue

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from mageslam_tpu.ops import matching as jmatch
 from mageslam_tpu_torch.ops import matching
 
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 

@@ -1,16 +1,20 @@
-"""The port's tracking slice against a live JAX session.
+"""The port's tracking slice against the JAX session, and the committed
+fixtures that chip_smoke.py reads against live JAX.
 
-A JAX `SlamSession` runs bench.py's world over frames 0-30 through
-`process_frame` and is saved with `save_session_snapshot`. The port loads
-that file; then frames 31-36 go through both sessions. Tolerances: states
-and keyframe flags identical, tracked count within 2, pose atol 4e-4 (the
-reference's own chunk-vs-sync reassociation bound, tests/test_pipeline.py),
-associations equal on at least 99 % of valid keypoints.
+tests/data/torch_port_bench640_f30.npz (tools/export_jax_state.py) holds
+the JAX session's state after bench.py's frames 0-30
+(`save_session_snapshot`) and its outputs over frames 31-54. The port loads
+that state and tracks frames 31-36. Tolerances: states and keyframe flags
+identical, tracked count within 2, pose atol 4e-4 (the reference's own
+chunk-vs-sync reassociation bound, tests/test_pipeline.py), associations
+equal on at least 99 % of valid keypoints.
 
-The same live run also checks the committed fixtures that chip_smoke.py
-reads (tools/export_jax_state.py wrote them): the f30 file's state leaves
-and its stored outputs for frames 31-36, and the init file's record of
-frames 0-30 (attempts, draws, the index after adoption and retrain).
+Live JAX holds the fixtures: a JAX session restored from the committed
+state (the reference's own loader) tracks frames 31-36 and gives the
+fixture's outputs and, saved again, its state leaves; every draw of the
+init fixture equals JAX's draw from its recorded key, and every recorded
+init attempt, run again from its recorded inputs and key, gives the
+recorded result.
 """
 
 import ast
@@ -19,8 +23,9 @@ import importlib.util
 import os
 import subprocess
 import sys
+import typing
 
-import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
+import jax
 import numpy as np
 import pytest
 import torch
@@ -30,10 +35,13 @@ from mageslam_tpu_torch import SlamSession, TrackingState, golden_path_settings
 from mageslam_tpu_torch.bow.index import BowIndex
 from mageslam_tpu_torch.interop import PREFIXES, leaf_names, load_jax_snapshot, to_numpy
 
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
 INIT_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_init.npz")
 WINDOW = range(31, 37)
+CAM = np.float32([520.0, 520.0, 320.0, 240.0])
 
 
 def _load_tool():
@@ -44,33 +52,58 @@ def _load_tool():
     return module
 
 
-def _jax_leaves(state) -> dict:
-    """{leaf name: array} of a JAX state NamedTuple, names from its own fields."""
-    out = {}
-    for f in type(state)._fields:
-        v = getattr(state, f)
-        parts = {f"{f}.R": v.R, f"{f}.t": v.t} if isinstance(v, JaxPose) else {f: v}
-        out.update({k: np.asarray(a) for k, a in parts.items()})
-    return out
+def _jax_leaf_names(cls) -> list[str]:
+    """Leaf names of a JAX state NamedTuple in flatten order, from its own
+    fields: a Pose field `f` gives `f.R` and `f.t`."""
+    hints = typing.get_type_hints(cls)
+    return [n for f in cls._fields
+            for n in ([f"{f}.R", f"{f}.t"] if hints[f] is JaxPose else [f])]
+
+
+def _file_leaves(data: dict, prefix: str, cls) -> dict:
+    """{leaf name: array} of the `{prefix}{i}` arrays of a snapshot file,
+    named by the JAX class's fields."""
+    names = _jax_leaf_names(cls)
+    assert f"{prefix}{len(names)}" not in data and f"{prefix}{len(names) - 1}" in data
+    return {n: data[f"{prefix}{i}"] for i, n in enumerate(names)}
+
+
+@pytest.fixture(scope="module")
+def committed():
+    from mageslam_tpu.bow.index import BowIndex as JaxBowIndex
+    from mageslam_tpu.runtime.pose_history import PoseHistory as JaxPoseHistory
+    from mageslam_tpu.tracking.frame_state import TrackingHistory as JaxTrackingHistory
+    from mageslam_tpu.worldmap.map_state import MapState as JaxMapState
+
+    with np.load(FIXTURE) as z:
+        data = {k: z[k] for k in z.files}
+    classes = {"map": JaxMapState, "hist": JaxTrackingHistory, "ph": JaxPoseHistory,
+               "bow": JaxBowIndex}
+    return {"data": data, "leaves": {p: _file_leaves(data, p, c) for p, c in classes.items()}}
 
 
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
+    """A JAX session restored from the committed state over frames 31-36,
+    and its state saved again before them."""
+    from mageslam_tpu.io.snapshot import load_session_snapshot, save_session_snapshot
+
     tool = _load_tool()
     frames = tool.bench_frames(WINDOW.stop)
+    sess = tool.make_jax_session()
+    load_session_snapshot(FIXTURE, sess)
     snap = str(tmp_path_factory.mktemp("snap") / "snap.npz")
-    sess = tool.run_to_snapshot(frames, snap)
-    leaves = {"map": _jax_leaves(sess.map), "hist": _jax_leaves(sess.history),
-              "ph": _jax_leaves(sess.pose_history), "bow": _jax_leaves(sess.bow)}
+    save_session_snapshot(snap, sess)
     ref = tool.record_window(sess, frames, WINDOW.start, WINDOW.stop)
-    return {"tool": tool, "frames": frames, "snap": snap, "leaves": leaves, "ref": ref,
-            "init": sess.init_record}
+    return {"tool": tool, "frames": frames, "snap": snap, "ref": ref}
 
 
-def test_interop_round_trip(jax_run):
-    states = load_jax_snapshot(jax_run["snap"], "cpu")
+def test_interop_round_trip(committed):
+    """The port loads the JAX package's snapshot: every leaf, named by the
+    JAX classes' own fields, bit for bit."""
+    states = load_jax_snapshot(FIXTURE, "cpu")
     for (prefix, cls), state in zip(PREFIXES, states):
-        want = jax_run["leaves"][prefix]
+        want = committed["leaves"][prefix]
         got = to_numpy(state)
         assert leaf_names(cls) == list(want) == list(got), prefix
         for name, arr in want.items():
@@ -85,17 +118,18 @@ def test_interop_round_trip(jax_run):
     bow = states[4]
     assert isinstance(bow, BowIndex) and (bow.anchors < 0).any()
     got = to_numpy(bow)
-    assert list(got) == leaf_names(BowIndex) == list(jax_run["leaves"]["bow"])
-    for name, arr in jax_run["leaves"]["bow"].items():
+    assert list(got) == leaf_names(BowIndex) == list(committed["leaves"]["bow"])
+    for name, arr in committed["leaves"]["bow"].items():
         assert got[name].dtype == arr.dtype and got[name].shape == arr.shape, name
         np.testing.assert_array_equal(np.atleast_1d(got[name]).view(np.uint8),
                                       np.atleast_1d(arr).view(np.uint8), err_msg=name)
 
 
-def test_committed_fixture_matches_live_jax_run(jax_run):
+def test_committed_fixture_matches_live_jax_run(jax_run, committed):
+    """A live JAX session restored from the committed state gives its
+    leaves back and the fixture's outputs over frames 31-36."""
     live = np.load(jax_run["snap"])
-    with np.load(FIXTURE) as z:
-        fixed = {k: z[k] for k in z.files}
+    fixed = committed["data"]
     keys = [k for k in live.files if k.startswith(("map", "hist", "ph"))]
     assert keys and all(k in fixed for k in keys)
     for k in keys + ["meta_json"]:
@@ -114,29 +148,60 @@ def test_committed_fixture_matches_live_jax_run(jax_run):
             np.testing.assert_array_equal(fixed[k][:n], v, err_msg=k)
 
 
-def test_init_fixture_matches_live_jax_run(jax_run):
-    """The init fixture against the live run's record of the same frames
-    0-30: keys, draws and integers exact, floats within 1e-5."""
-    live = jax_run["init"]
+def test_init_fixture_matches_live_jax_run():
+    """The init fixture's record of frames 0-30 against live JAX: every
+    draw equals `jax.random.gumbel` of its recorded key (the vmapped draw
+    over the key's splits for the attempts and the third-frame check), and
+    every attempt, run again from its recorded inputs and key, gives the
+    recorded result: integers exact, floats within 1e-5."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.tracking import map_init as jax_map_init
+    from mageslam_tpu_torch.tracking.map_init import init_settings
+
     with np.load(INIT_FIXTURE) as z:
         fixed = {k: z[k] for k in z.files}
-    assert sorted(live) == sorted(fixed)
     assert int(fixed["init_adopt_frame"]) == 7 and int(fixed["init_retrain_frame"]) == 14
-    for k, a in live.items():
-        b = fixed[k]
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        if a.dtype.kind == "f" and not k.endswith("_draws"):
-            np.testing.assert_allclose(b, a, rtol=0, atol=1e-5, err_msg=k)
-        else:
-            np.testing.assert_array_equal(b, a, err_msg=k)
+    draw = jax.jit(lambda keys, shape: jax.vmap(lambda k: jax.random.gumbel(k, shape))(keys),
+                   static_argnums=1)
+    settings = jax_map_init.InitSettings(*init_settings(golden_path_settings()))
+    names = ("xy1", "desc1", "valid1", "xy2", "desc2", "valid2")
+    for j in range(int(fixed["init_n_attempt"])):
+        p = f"init_att{j}_"
+        d = fixed[p + "draws"]
+        np.testing.assert_array_equal(
+            np.asarray(draw(jax.random.split(fixed[p + "key"], d.shape[0]), d.shape[1:])), d)
+        res = jax_map_init.try_initialize_pair(
+            *(jnp.asarray(fixed[p + n]) for n in names), jnp.asarray(CAM),
+            jnp.asarray(fixed[p + "key"]), settings, ransac_batch=d.shape[0])
+        for name, got in (("succeeded", res.succeeded), ("point_valid", res.point_valid),
+                          ("feat2", res.feat2), ("match_count", res.match_count),
+                          ("pose2_R", res.pose2.R), ("pose2_t", res.pose2.t),
+                          ("points", res.points)):
+            want, got = fixed[p + name], np.asarray(got)
+            if want.dtype.kind == "f":
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=p + name)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=p + name)
+    for j in range(int(fixed["init_n_third"])):
+        p = f"init_third{j}_"
+        d = fixed[p + "draws"]
+        np.testing.assert_array_equal(
+            np.asarray(draw(jax.random.split(fixed[p + "key"], d.shape[0]), d.shape[1:])), d)
+    for j in range(int(fixed["init_n_vocab"])):
+        p = f"init_vocab{j}_"
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.gumbel(fixed[p + "key"], fixed[p + "draws"].shape)),
+            fixed[p + "draws"])
 
 
-def test_slice_tracks_like_jax(jax_run):
-    ref = jax_run["ref"]
-    sess = SlamSession.from_jax_snapshot(jax_run["snap"], golden_path_settings(),
-                                         jax_run["tool"].CAM, 640, 480, "cpu")
+def test_slice_tracks_like_jax(committed):
+    ref = committed["data"]
+    frames = _load_tool().bench_frames(WINDOW.stop)
+    sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(),
+                                         tuple(CAM.tolist()), 640, 480, "cpu")
     for j, i in enumerate(WINDOW):
-        r = sess.process_frame(jax_run["frames"][i], i * 0.033, i)
+        r = sess.process_frame(frames[i], i * 0.033, i)
         assert r.frame_id == i
         assert r.state.value == ref["ref_state"][j]
         assert r.is_keyframe == bool(ref["ref_is_kf"][j])

@@ -72,7 +72,31 @@ qualifies, and only those draws are recorded):
   `test_essential_graph_distributes_drift` with `essential_graph_refine`'s
   inputs and output (`eg_*`) (~60 s).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|all]
+Two more hold the references of the stereo rig and the camera models
+(`SessionRecorder`: a session's draws, results and the map's masks after
+each mapping event, under a prefix):
+
+- `stereo`: tests/test_stereo.py's scenes. `pair_*`: the synthetic pair
+  (300 points, 512 slots, baseline 0.12) and `stereo_initialize`'s result,
+  also with no displacement (`pair_zero_*`). `rig_*`: the rig-tether
+  session, the bootstrap pair then 39 frames of synthetic features (every
+  frame's features stored), with its tether bank and keyframe poses at the
+  end. `mix_*`: the mixed-FOV rig through `process_stereo_frames`, 24
+  pairs at 320x180 rendered by `mixed_rig_render` (numpy), stored as each
+  frame's SHA-256, with the rescaled secondary camera; the session's
+  snapshot right after its stereo bootstrap is the file's own keys
+  (~60 s);
+- `cameras`: tests/test_undistort.py's Poly3K photoreal scene (the frames
+  distorted and rounded to uint8, `dist_frames`) run with
+  UndistortImagePixels on (`und_*`) and, in a second file, off (`kp_*`);
+  the oriented frontend at 3 levels on two photoreal frames (`orb{j}_*`);
+  the first frame's features of a session with SpatialFeatureSelection=True
+  (`sfs_feat0_*`, extracted with it off before init); and in a third file a
+  photoreal session with UseOrientation=True over its first 30 frames
+  (`orient_*`) (~300 s). These sessions' init-attempt draws are stored as
+  0 where the attempt's mutual match fails (no sample can pick them).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -80,13 +104,17 @@ tests/data/torch_port_bench640_map.npz (map),
 tests/data/torch_port_bench640_bow.npz (bow),
 tests/data/torch_port_bench640_init.npz (init),
 tests/data/torch_port_photoreal.npz (photoreal),
-tests/data/torch_port_reloc.npz (reloc) and
-tests/data/torch_port_loop.npz (loop).
+tests/data/torch_port_reloc.npz (reloc),
+tests/data/torch_port_loop.npz (loop),
+tests/data/torch_port_stereo.npz (stereo) and
+tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
+torch_port_orient.npz (cameras).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import sys
 import tempfile
 
@@ -136,13 +164,13 @@ class InitRecorder:
     and draw: installed on the pipeline module's functions and on the
     session's own methods while frames 0..SNAP_FRAME run."""
 
-    def __init__(self, sess):
+    def __init__(self, sess, mask_draws: bool = False):
         import jax
 
         from mageslam_tpu.bow import index as bow_index
         from mageslam_tpu.runtime import pipeline
 
-        self.sess, self.frame = sess, -1
+        self.sess, self.frame, self.mask_draws = sess, -1, mask_draws
         self.arrays: dict = {}
         self.counts = {"attempt": 0, "third": 0, "vocab": 0}
         self.adopt_frame = self.retrain_frame = -1
@@ -198,7 +226,17 @@ class InitRecorder:
         p = f"init_att{j}_"
         self._put(p + "frame", np.int32(self.frame))
         self._put(p + "key", key)
-        self._put(p + "draws", self._draws(key, ransac_batch, (5, n)))
+        draws = self._draws(key, ransac_batch, (5, n))
+        if self.mask_draws:
+            # a draw where the pair's mutual match fails never reaches a
+            # sample: the greedy argmax adds -1e12 there, which absorbs it
+            # (map_init.py:164-176); stored as 0, the file compresses
+            from mageslam_tpu.ops.matching import match_two_way
+
+            m_idx, _ = match_two_way(desc1, valid1, desc2, valid2,
+                                     settings.max_hamming_dist, settings.min_hamming_diff)
+            draws = np.where(np.asarray(m_idx >= 0)[None, None], draws, np.float32(0))
+        self._put(p + "draws", draws)
         for name, v in (("xy1", xy1), ("desc1", desc1), ("valid1", valid1),
                         ("xy2", xy2), ("desc2", desc2), ("valid2", valid2)):
             self._put(p + name, v)
@@ -906,10 +944,388 @@ def main_loop(out_path: str = LOOP_OUT) -> None:
     print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
 
 
+STEREO_OUT = os.path.join(REPO, "tests", "data", "torch_port_stereo.npz")
+CAMERAS_OUT = os.path.join(REPO, "tests", "data", "torch_port_cameras.npz")
+CAMERAS_KP_OUT = os.path.join(REPO, "tests", "data", "torch_port_cameras_kp.npz")
+ORIENT_OUT = os.path.join(REPO, "tests", "data", "torch_port_orient.npz")
+RIG_FRAMES = 40          # the rig-tether session: the bootstrap pair + 39 frames
+MIXED_FRAMES = 24        # the mixed-FOV rig through process_stereo_frames
+MIXED_SIZE = (320, 180)
+MIXED_CAMS = ((260.0, 260.0), (325.0, 325.0))   # primary, narrower secondary fx, fy
+MIXED_PP = (160.0, 90.0)
+DISTORTED_FRAMES = 40    # the Poly3K photoreal scene, in both undistortion modes
+DISTORTION = (-0.15, 0.03, 0.0, 0.0, 0.0)        # k1, k2, k3, p1, p2
+ORIENT_FRAMES = 30       # a photoreal session with UseOrientation=True
+ORB_FRAMES = (0, 40)     # photoreal frames for the oriented, 3-level frontend
+ORB_LEVELS = 3
+
+
+def _prefixed(prefix: str, arrays: dict) -> dict:
+    return {prefix + k: v for k, v in arrays.items()}
+
+
+def _stereo_settings(s, **keyframe):
+    """`s` with MaxDepthMeters = 12 (the synthetic scenes are 3-10 m deep at
+    a 0.12 m baseline) and, where given, KeyframeSettings replaced."""
+    import dataclasses
+
+    st = s.StereoSettings
+    s = dataclasses.replace(s, StereoSettings=dataclasses.replace(
+        st, StereoMapInitializationSettings=dataclasses.replace(
+            st.StereoMapInitializationSettings, MaxDepthMeters=12.0)))
+    if keyframe:
+        s = dataclasses.replace(s, KeyframeSettings=dataclasses.replace(
+            s.KeyframeSettings, **keyframe))
+    return s
+
+
+def _with_fes(s, undistort_pixels: bool | None = None, **fes):
+    """`s` with the mono camera's FeatureExtractorSettings (and
+    UndistortImagePixels, where given) replaced."""
+    import dataclasses
+
+    cam = s.MonoSettings.MonoCamera
+    cam = dataclasses.replace(cam, FeatureExtractorSettings=dataclasses.replace(
+        cam.FeatureExtractorSettings, **fes))
+    if undistort_pixels is not None:
+        cam = dataclasses.replace(cam, UndistortImagePixels=undistort_pixels)
+    return dataclasses.replace(s, MonoSettings=dataclasses.replace(s.MonoSettings,
+                                                                   MonoCamera=cam))
+
+
+ATTEMPT_INPUT = re.compile(r"init_(att\d+_(xy|desc|valid)[12]|third\d+_(xy|desc|valid|"
+                           r"anchor_valid))$")
+
+
+class SessionRecorder:
+    """A JAX session's draws (`InitRecorder`, `RelocRecorder`), the map's
+    masks after each mapping event and each result (`session_refs`)."""
+
+    def __init__(self, sess):
+        self.sess = sess
+        self.rec, self.rrec = InitRecorder(sess, mask_draws=True), RelocRecorder(sess)
+        self.events = []
+        mapper = sess._insert_keyframe_and_map
+
+        def recording_mapper(frame, frame_id):
+            mapper(frame, frame_id)
+            self.events.append((frame_id, {n: np.asarray(getattr(sess.map, n))
+                                           for n in EVENT_MASKS}))
+
+        sess._insert_keyframe_and_map = recording_mapper
+
+    def close(self) -> dict:
+        self.rec.close()
+        self.rrec.close()
+        del self.sess._insert_keyframe_and_map
+        # the port replays the draws; the attempts' inputs stay out of the file
+        arrays = {k: v for k, v in self.rec.result().items()
+                  if not k.startswith("init_ref_") and not ATTEMPT_INPUT.match(k)}
+        arrays.update(self.rrec.result())
+        arrays.update(session_refs(self.sess))
+        arrays["ev_frame_id"] = np.asarray([e[0] for e in self.events], np.int32)
+        for j, (_, masks) in enumerate(self.events):
+            arrays.update({f"ev{j}_{n}": v for n, v in masks.items()})
+        arrays["map_scale"] = np.float32(self.sess.map_scale)
+        return arrays
+
+
+def mixed_rig_world():
+    """tests/test_stereo.py::test_tracks_on_stereo2_with_rescale_active's
+    world: 300 points and their 13×13 patches, the patches resampled for
+    the narrower secondary camera."""
+    rng = np.random.RandomState(17)
+    n_pts = 300
+    pts = np.stack([rng.uniform(-3.0, 7.0, n_pts), rng.uniform(-2.0, 2.0, n_pts),
+                    rng.uniform(3.0, 7.0, n_pts)], 1).astype(np.float32)
+    patches = rng.uniform(30, 220, (n_pts, 13, 13)).astype(np.float32)
+
+    def resize_patch(p, n):
+        xs = np.linspace(0, p.shape[1] - 1, n)
+        rows = np.stack([np.interp(xs, np.arange(p.shape[1]), p[r])
+                         for r in range(p.shape[0])])
+        ys = np.linspace(0, p.shape[0] - 1, n)
+        return np.stack([np.interp(ys, np.arange(p.shape[0]), rows[:, c])
+                         for c in range(n)], axis=1).astype(np.float32)
+
+    n1 = int(round(13 * MIXED_CAMS[1][0] / MIXED_CAMS[0][0])) | 1
+    return pts, patches, np.stack([resize_patch(p, n1) for p in patches])
+
+
+def mixed_rig_render(pts, R, t, fx, fy, bank):
+    """The test's renderer with numpy in place of `Pose.transform`: each
+    visible point's patch pasted at its rounded projection."""
+    W2, H2 = MIXED_SIZE
+    half = bank.shape[1] // 2
+    Xc = pts @ np.asarray(R, np.float32).T + np.asarray(t, np.float32)
+    z = Xc[:, 2]
+    u = fx * Xc[:, 0] / z + MIXED_PP[0]
+    v = fy * Xc[:, 1] / z + MIXED_PP[1]
+    img = np.zeros((H2, W2), np.float32)
+    m = half + 3
+    vis = (z > 1.0) & (u > m) & (u < W2 - m) & (v > m) & (v < H2 - m)
+    for i in np.where(vis)[0]:
+        x, y = int(round(u[i])), int(round(v[i]))
+        img[y - half:y + half + 1, x - half:x + half + 1] = bank[i]
+    return img
+
+
+def mixed_rig_frames():
+    """The 24 pairs: (img0, img1, timestamp) per frame; the rig's camera 0 →
+    camera 1 transform is (I, (-0.12, 0, 0))."""
+    pts, patches, patches1 = mixed_rig_world()
+    eye = np.eye(3, dtype=np.float32)
+    out = []
+    for i in range(MIXED_FRAMES):
+        ts = i * DT
+        c = np.array([1.8 * ts, 0.05 * np.sin(2 * ts), 0.0], np.float32)
+        t0 = -c
+        t1 = t0 + np.array([-0.12, 0.0, 0.0], np.float32)
+        out.append((mixed_rig_render(pts, eye, t0, *MIXED_CAMS[0], patches),
+                    mixed_rig_render(pts, eye, t1, *MIXED_CAMS[1], patches1), ts))
+    return out
+
+
+def frame_hash(img: np.ndarray) -> np.bytes_:
+    import hashlib
+
+    return np.bytes_(hashlib.sha256(np.ascontiguousarray(img, np.float32).tobytes())
+                     .hexdigest())
+
+
+def main_stereo(out_path: str = STEREO_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from test_pipeline import CAM, H, W, frame_features, make_world, pose_at
+    from test_stereo import stereo_pair
+
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.geometry.se3 import Pose
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.tracking.stereo_init import StereoInitSettings, stereo_initialize
+
+    arrays: dict = {"cam": np.asarray(CAM, np.float32), "size": np.asarray([W, H], np.int32)}
+
+    # the bootstrap alone: TestStereoInit's pair (300 points, 512 slots,
+    # baseline 0.12), then the same pair with no displacement
+    rng = np.random.RandomState(0)
+    pts, descs = make_world(rng, n=300)
+    f0, f1, rel, _, _ = stereo_pair(rng, pts, descs, 512)
+    arrays.update(_feature_arrays("pair_f0_", f0))
+    arrays.update(_feature_arrays("pair_f1_", f1))
+    arrays["pair_rel_R"], arrays["pair_rel_t"] = np.asarray(rel.R), np.asarray(rel.t)
+    settings = StereoInitSettings(max_depth_meters=12.0)
+    for name, pose in (("pair_", rel), ("pair_zero_", Pose.identity())):
+        res = stereo_initialize(f0.und_xy, f0.desc, f0.valid, f1.und_xy, f1.desc,
+                                f1.valid, CAM, pose, settings)
+        for field in ("succeeded", "points", "point_valid", "feat1", "feat2",
+                      "match_count"):
+            arrays[f"{name}{field}"] = np.asarray(getattr(res, field))
+        arrays[f"{name}pose2_R"] = np.asarray(res.pose2.R)
+        arrays[f"{name}pose2_t"] = np.asarray(res.pose2.t)
+    print(f"pair: succeeded {bool(arrays['pair_succeeded'])}, "
+          f"{int(arrays['pair_match_count'])} matches, "
+          f"{int(arrays['pair_point_valid'].sum())} points; zero baseline "
+          f"{bool(arrays['pair_zero_succeeded'])}")
+
+    # the rig-tether session (test_rig_tether_persists_through_mapping_bas)
+    rng = np.random.RandomState(0)
+    pts, descs = make_world(rng, n=500)
+    s = _stereo_settings(golden_path_settings(),
+                         KeyframeDecisionMaxTrackingPointMatches=100000,
+                         KeyframeDecisionMaxTrackingPointOverlap=0.98)
+    sess = SlamSession(s, cam=CAM, image_width=int(W), image_height=int(H))
+    rec = SessionRecorder(sess)
+    f0, f1, rel, _, _ = stereo_pair(rng, pts, descs, sess.N)
+    rig = _feature_arrays("rig_feat0_", f0)
+    rig.update(_feature_arrays("rig_feat0b_", f1))
+    rig["rig_rel_R"], rig["rig_rel_t"] = np.asarray(rel.R), np.asarray(rel.t)
+    try:
+        sess.process_stereo_features(f0, f1, rel, 0.0, 0)
+        for i in range(1, RIG_FRAMES):
+            t = i * 0.033
+            feats = frame_features(pts, descs, pose_at(2.2 * t), sess.N, rng, noise=0.4)
+            rig.update(_feature_arrays(f"rig_feat{i}_", feats))
+            sess.process_features(feats, t, i)
+    finally:
+        arrays.update(_prefixed("rig_", rec.close()))
+    arrays.update(rig)
+    arrays["rig_timestamps"] = np.asarray([i * 0.033 for i in range(RIG_FRAMES)])
+    m = sess.map
+    for name in ("tether_owner", "tether_origin", "tether_kind", "tether_distance",
+                 "tether_weight", "kf_valid", "kf_cam", "kf_frame_id"):
+        arrays[f"rig_final_{name}"] = np.asarray(getattr(m, name))
+    arrays["rig_final_tether_R"] = np.asarray(m.tether_pose.R)
+    arrays["rig_final_tether_t"] = np.asarray(m.tether_pose.t)
+    arrays["rig_final_kf_R"] = np.asarray(m.kf_pose.R)
+    arrays["rig_final_kf_t"] = np.asarray(m.kf_pose.t)
+    print(f"rig: states {arrays['rig_ref_state'].tolist()}; keyframes at "
+          f"{arrays['rig_ref_frame_id'][arrays['rig_ref_is_kf']].tolist()}; "
+          f"{len(arrays['rig_ev_frame_id'])} mapping events; "
+          f"{int(arrays['rig_reloc_n'])} relocalizations")
+
+    # the mixed-FOV rig through process_stereo_frames
+    (fx0, fy0), (fx1, fy1) = MIXED_CAMS
+    w2, h2 = MIXED_SIZE
+    camera1 = np.zeros(16, np.float32)
+    camera1[:4] = [fx1, fy1, *MIXED_PP]
+    camera1[12], camera1[13] = w2, h2
+    s = _stereo_settings(golden_path_settings())
+    sess = SlamSession(s, cam=jnp.array([fx0, fy0, *MIXED_PP]), image_width=w2,
+                       image_height=h2)
+    rec = SessionRecorder(sess)
+    rel = Pose(jnp.eye(3), jnp.array([-0.12, 0.0, 0.0]))
+    hashes = []
+    try:
+        for i, (img0, img1, ts) in enumerate(mixed_rig_frames()):
+            hashes.append((frame_hash(img0), frame_hash(img1)))
+            was = sess.initialized
+            sess.process_stereo_frames(img0, img1, rel, ts, i, camera1=jnp.asarray(camera1))
+            if sess.initialized and not was:
+                arrays.update(_snapshot_arrays(sess))     # the file's own keys
+                arrays["mix_snapshot_frame"] = np.int32(i)
+    finally:
+        arrays.update(_prefixed("mix_", rec.close()))
+    _, ok, remap, cam1_16 = sess._stereo_prep
+    arrays["mix_hash0"] = np.asarray([h[0] for h in hashes])
+    arrays["mix_hash1"] = np.asarray([h[1] for h in hashes])
+    arrays["mix_camera1"] = camera1
+    arrays["mix_cam"] = np.asarray([fx0, fy0, *MIXED_PP], np.float32)
+    arrays["mix_cam1_16"] = np.asarray(cam1_16)
+    arrays["mix_rescale_ok"] = np.bool_(ok)
+    arrays["mix_rescale_active"] = np.bool_(remap is not None)
+    arrays["mix_timestamps"] = np.asarray([i * DT for i in range(MIXED_FRAMES)])
+    arrays["mix_final_kf_cam"] = np.asarray(sess.map.kf_cam)
+    arrays["mix_final_kf_valid"] = np.asarray(sess.map.kf_valid)
+    arrays["mix_final_kf_frame_id"] = np.asarray(sess.map.kf_frame_id)
+    _save(out_path, arrays)
+    print(f"mixed: states {arrays['mix_ref_state'].tolist()}; keyframes at "
+          f"{arrays['mix_ref_frame_id'][arrays['mix_ref_is_kf']].tolist()}; cam1_16[:4] "
+          f"{arrays['mix_cam1_16'][:4].tolist()}")
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
+
+
+def distortion_maps(cam16):
+    """The forward map that renders a distorted frame from an ideal pinhole
+    one (tests/test_undistort.py::test_tracks_with_poly3k_undistort_pixels):
+    each distorted pixel samples the ideal image at its undistorted place."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.geometry.camera import pixel_to_normalized, undistort_normalized
+
+    w, h = int(cam16[12]), int(cam16[13])
+    u, v = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    xn = undistort_normalized(cam16, pixel_to_normalized(cam16, jnp.asarray(
+        np.stack([u, v], -1))))
+    return jnp.stack([cam16[0] * xn[..., 0] + cam16[2], cam16[1] * xn[..., 1] + cam16[3]],
+                     axis=-1)
+
+
+def main_cameras(out_path: str = CAMERAS_OUT) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    from mageslam_tpu.apps.render_scene import FX, FY, render_sequence
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.geometry.camera import make_pinhole, make_poly3k
+    from mageslam_tpu.ops.frontend import detect_and_compute
+    from mageslam_tpu.ops.undistort import remap_bilinear
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.runtime import pipeline as pipeline_mod
+
+    W, H = PHOTOREAL_SIZE
+    with np.load(PHOTOREAL_OUT) as z:
+        photo, photo_ts, photo_cam = z["frames"], z["timestamps"], z["cam"]
+    arrays: dict = {}
+
+    # the Poly3K scene: rendered, distorted, rounded to uint8
+    sx, sy = W / 640.0, H / 480.0
+    cam16 = make_poly3k(FX * sx, FY * sy, W / 2, H / 2, *DISTORTION, W, H)
+    dist_map = distortion_maps(cam16)
+    seq = list(render_sequence(DISTORTED_FRAMES, W, H))
+    frames = np.stack([np.clip(np.round(np.asarray(remap_bilinear(
+        jnp.asarray(img, jnp.float32), dist_map))), 0, 255).astype(np.uint8)
+        for img, *_ in seq])
+    arrays["dist_frames"] = frames
+    arrays["dist_timestamps"] = np.asarray([s[1] for s in seq], np.float64)
+    arrays["dist_camera"] = np.asarray(cam16)
+    kp_arrays: dict = {}
+    for prefix, undistort, out in (("und_", True, arrays), ("kp_", False, kp_arrays)):
+        sess = SlamSession(_with_fes(golden_path_settings(), undistort_pixels=undistort),
+                           camera=cam16, image_width=W, image_height=H)
+        rec = SessionRecorder(sess)
+        try:
+            for i, img in enumerate(frames):
+                sess.process_frame(img, float(arrays["dist_timestamps"][i]), i)
+        finally:
+            out.update(_prefixed(prefix, rec.close()))
+        out[prefix + "cam"] = np.asarray(sess.cam)
+        out[prefix + "cam16"] = np.asarray(sess.cam16)
+        print(f"distorted, UndistortImagePixels={undistort}: states "
+              f"{out[prefix + 'ref_state'].tolist()}; keyframes at "
+              f"{out[prefix + 'ref_frame_id'][out[prefix + 'ref_is_kf']].tolist()}")
+    _save(CAMERAS_KP_OUT, kp_arrays)
+    print(f"wrote {CAMERAS_KP_OUT}: {os.path.getsize(CAMERAS_KP_OUT)} bytes")
+
+    # a photoreal session with UseOrientation=True
+    sess = SlamSession(_with_fes(golden_path_settings(), UseOrientation=True),
+                       cam=jnp.asarray(photo_cam), image_width=W, image_height=H)
+    rec = SessionRecorder(sess)
+    try:
+        for i in range(ORIENT_FRAMES):
+            sess.process_frame(photo[i], float(photo_ts[i]), i)
+    finally:
+        orient = _prefixed("orient_", rec.close())
+    _save(ORIENT_OUT, orient)
+    print(f"oriented: states {orient['orient_ref_state'].tolist()}; keyframes at "
+          f"{orient['orient_ref_frame_id'][orient['orient_ref_is_kf']].tolist()}; wrote "
+          f"{ORIENT_OUT}: {os.path.getsize(ORIENT_OUT)} bytes")
+
+    # the oriented frontend at 3 levels on two photoreal frames
+    fes = dataclasses.replace(golden_path_settings().MonoSettings.MonoCamera
+                              .FeatureExtractorSettings, UseOrientation=True,
+                              NumLevels=ORB_LEVELS)
+    pin16 = make_pinhole(*photo_cam, W, H)
+    for j, i in enumerate(ORB_FRAMES):
+        feats = detect_and_compute(jnp.asarray(photo[i], jnp.float32), pin16, fes, 512)
+        arrays.update(_feature_arrays(f"orb{j}_", feats))
+    arrays["orb_frames"] = np.asarray(ORB_FRAMES, np.int32)
+
+    # SpatialFeatureSelection: the session's first (init) frame's features
+    s = _with_fes(golden_path_settings(), SpatialFeatureSelection=True)
+    sess = SlamSession(s, cam=jnp.asarray(photo_cam), image_width=W, image_height=H)
+    seen = []
+    real = pipeline_mod.detect_and_compute
+
+    def recording(image, cam, fes, max_features):
+        out = real(image, cam, fes, max_features)
+        seen.append((fes.SpatialFeatureSelection, out))
+        return out
+
+    pipeline_mod.detect_and_compute = recording
+    try:
+        sess.process_frame(photo[0], float(photo_ts[0]), 0)
+    finally:
+        pipeline_mod.detect_and_compute = real
+    if seen[0][0]:
+        raise RuntimeError("the JAX session extracted its first frame with the spatial "
+                           "selection on")
+    arrays.update(_feature_arrays("sfs_feat0_", seen[0][1]))
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "all"):
+                     "stereo", "cameras", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -925,3 +1341,7 @@ if __name__ == "__main__":
         main_reloc()
     if which in ("loop", "all"):
         main_loop()
+    if which in ("stereo", "all"):
+        main_stereo()
+    if which in ("cameras", "all"):
+        main_cameras()
