@@ -160,6 +160,34 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      `undistort_image`'s time a frame.
    Frames and events beyond the tolerance on the card are logged in ROADMAP
    queue 3 and held to LOGGED's ceilings.
+12. Visual-inertial run and the fossilized map, from
+   tests/data/torch_port_vi.npz (the JAX package's apps/vi_eval.py run on
+   the photoreal frames, `tools/export_jax_state.py vi`), JAX's draws
+   replayed, the IMU stream (`synthesize_imu`) held to JAX's by SHA-256:
+   - `run_vi_eval(80)` with every radius-match, two-way and Hamming call
+     captured and the host reads of each frame counted by fuser mode: its
+     transitions JAX's, tests/test_vi_e2e.py's gates (TRACKING reached
+     after SCALE_INIT, metric scale within 35 % of the trajectory's truth,
+     at least 64 frames tracked and 60 poses, ATE < 0.06 m);
+   - the same 80 frames through `add_sensor_sample` / `process_frame`,
+     launches counted from 0: the fuser's mode after every frame, states,
+     keyframe flags, poses (1e-3, t scaled by the map-scale ratio), tracked
+     counts and the masks after every event as JAX's, the metric scale
+     within 1e-3 relative in JAX's map units, the IMU priors (1e-3) and the
+     covariances (flag exact, 5e-3 of the largest entry) on every
+     VI-tracking frame, launches by frame class; frame 71's borderline
+     inliers and what the filter carries of them are held to their logged
+     ceilings (ROADMAP queue 3);
+   - the same frames vision-only, for a tracked frame's wall time beside
+     the VI frame's;
+   - the live queries, then `fossilize_map`: the trajectory (ATE within
+     1e-3 m of JAX's), the raw and denoised clouds (the latter within 2e-3
+     of the cloud's extent: the eigensolver's signs, queue 3) and the
+     volume of interest (within one voxel); `ekf_predict`, the pose update,
+     the covariance and `reposition_points` timed and traced;
+   - the three filters replayed on the JAX run's recorded samples and
+     visual poses, against JAX's replays;
+   - every captured kernel call held exactly against its plain version.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -203,7 +231,8 @@ STEREO_CAM1_ATOL = 1e-4            # the mixed rig's rescaled secondary camera
 # keypoint of a pair whose responses are 4e-4 apart
 LOGGED = {"rig_": ({f: 1e-2 for f in range(18, 40)}, {17: 2, 21: 2}),
           "mix_": ({f: 4e-3 for f in range(16, 24)}, {}),
-          "und_": ({}, {13: 2, 16: 2})}
+          "und_": ({}, {13: 2, 16: 2}),
+          "": ({71: 2e-3}, {})}         # the VI run (its fixture's keys have no prefix)
 PHOTOREAL_SIZE = (320, 180)
 ATE_LIMIT = 0.06                   # m, tests/test_photoreal_ate.py's gate
 TRACKED_SHARE = 0.8
@@ -1311,12 +1340,13 @@ def detection_counter(count: list):
 
 
 def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEIGHT),
-                    timestamps=None, settings=None, camera=None) -> dict:
+                    timestamps=None, settings=None, camera=None, feed=None) -> dict:
     """A bare session (no snapshot) over `frames` from frame 0 with `draws`:
     results, per-frame launches, wall ms and what the session did on each
     frame, and the states it passed through. Frame i's timestamp is
     timestamps[i], by default i * DT. `settings` (golden by default) and
-    `camera` (a (16,) model) go to the session."""
+    `camera` (a (16,) model) go to the session; `feed(sess, i, timestamp)`,
+    where given, runs before frame i (a visual-inertial run's samples)."""
     from mageslam_tpu_torch import SlamSession, golden_path_settings
     from mageslam_tpu_torch.runtime import init_step
 
@@ -1337,9 +1367,12 @@ def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEI
             was_init, retrained = not sess.initialized, sess.bow_training.retrained
             drawn = dict(counting.counts)
             stats, ran = dict(sess.loop_det_stats), detections[0]
+            ts = i * DT if timestamps is None else float(timestamps[i])
+            if feed is not None:
+                feed(sess, i, ts)
             before = launch_counts()
             t0 = time.perf_counter()
-            r = sess.process_frame(img, i * DT if timestamps is None else float(timestamps[i]), i)
+            r = sess.process_frame(img, ts, i)
             torch.cuda.synchronize()
             out["ms"].append((time.perf_counter() - t0) * 1e3)
             out["launches"].append(tuple(a - b for a, b in zip(launch_counts(), before)))
@@ -2576,6 +2609,516 @@ def check_stereo_and_cameras(device, card: str) -> dict:
     return {**out, **out.pop("cameras")}
 
 
+VI_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_vi.npz")
+VI_FRAMES = 80
+VI_DRAW_KINDS = ("init", "pnp", "vocab")   # the photoreal run's; relocalization's the VI run's
+VI_TRACKED_MIN = 64        # tests/test_vi_e2e.py: 0.8 of 80 frames tracked
+VI_POSES_MIN = 60          # 0.75 of 80 fossilized poses
+VI_TRUTH_RTOL = 0.35       # metric scale against the trajectory's true ratio
+VI_SCALE_RTOL = 1e-3       # metric scale against the JAX run's (in its map units)
+VI_ATE_ATOL = 1e-3         # m, ATE against the JAX run's
+VI_COV_ATOL = 5e-3         # a covariance against JAX's, of its largest entry
+VI_REPLAY_ATOL = 1e-4      # a replayed filter's priors and states
+VI_REPLAY_SCALE_RTOL = 1e-5
+VI_CLOUD_ATOL = 2e-3       # the denoised cloud, of its extent (the normals' signs: queue 3)
+VI_LOGGED = LOGGED[""][0]  # frame → pose ceiling, ROADMAP queue 3 (photoreal's frame 71)
+# frame 71's borderline inliers reach the filter: the IMU priors of the next
+# frames carry them (the CPU at 1-4 threads: 4.1e-3 at 72, fading by 79)
+VI_PRIOR_LOGGED = {f: 6e-3 for f in range(72, 80)}
+# a frame whose tracked count differs from JAX's (a borderline inlier kept
+# or dropped) has another Hessian: its covariance is held to this ceiling
+# (the CPU: 0.26-0.38 of the largest entry on frames 71 and 77)
+VI_COV_LOGGED_ATOL = 0.5
+EKF_FIELDS = ("q", "p", "v", "bg", "ba", "P")
+
+
+def vi_draws(device):
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    return ReplayDraws.from_npzs(((PHOTOREAL_FIXTURE, VI_DRAW_KINDS),
+                                  (VI_FIXTURE, ("reloc",))), device)
+
+
+def vi_samples(ref: dict) -> list:
+    """apps/vi_eval.py's IMU stream, held to the JAX run's by SHA-256."""
+    import hashlib
+
+    from mageslam_tpu_torch.apps.render_scene import trajectory_pose
+    from mageslam_tpu_torch.apps.vi_eval import synthesize_imu
+
+    samples = synthesize_imu(trajectory_pose, VI_FRAMES, VI_FRAMES)
+    h = hashlib.sha256()
+    for s in samples:
+        h.update(np.int32(int(s.type)).tobytes() + np.float64(s.timestamp).tobytes()
+                 + np.asarray(s.data, np.float32).tobytes())
+    if h.hexdigest().encode() != ref["imu_sha256"].item():
+        raise AssertionError("the IMU stream differs from the JAX run's")
+    return samples
+
+
+def vi_feed(samples: list):
+    """A run_from_frame0 feed: every sample up to the frame's timestamp."""
+    at = [0]
+
+    def feed(sess, i, ts):
+        while at[0] < len(samples) and samples[at[0]].timestamp <= ts:
+            sess.add_sensor_sample(samples[at[0]])
+            at[0] += 1
+    return feed
+
+
+def all_kernel_call_recorders(calls: list, where: str):
+    """Patch targets recording every call of the three kernel wrappers on
+    the monocular path, arguments bound to positions (tensors cloned)."""
+    import inspect
+
+    from mageslam_tpu_torch.bow import index, vocab
+    from mageslam_tpu_torch.ops import matching
+    from mageslam_tpu_torch.runtime import init_step
+    from mageslam_tpu_torch.tracking import map_init, pose_estimation, relocalization
+    from mageslam_tpu_torch.worldmap import new_points
+
+    def recorder(kind):
+        def wrap(real):
+            sig = inspect.signature(real)
+
+            def call(*args, **kwargs):
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
+                                            for a in bound.arguments.values()]))
+                return real(*args, **kwargs)
+            return call
+        return wrap
+
+    return ([(m, "match_two_way", recorder("two_way"))
+             for m in (init_step, map_init, new_points, relocalization)]
+            + [(m, "hamming_matrix", recorder("hamming")) for m in (index, vocab)]
+            + [(m, "radius_match_stages", recorder("radius")) for m in (matching,
+                                                                         pose_estimation)])
+
+
+def vi_recorders(rec: dict):
+    """Patch targets keeping, without reading the device, each frame's
+    fuser mode after it, the IMU prior given to tracking and the pose
+    covariance (with its inputs, the last frame's kept)."""
+    from mageslam_tpu_torch.runtime import session as session_mod
+
+    frame = [0]
+
+    def process(real):
+        def call(self, image, timestamp, frame_id):
+            frame[0] = frame_id
+            out = real(self, image, timestamp, frame_id)
+            rec.setdefault("modes", []).append(self.fuser.mode.value)
+            return out
+        return call
+
+    def prior(real):
+        def call(self):
+            p = real(self)
+            if p is not None:
+                rec.setdefault("priors", {})[frame[0]] = p
+            return p
+        return call
+
+    def cov(real):
+        def call(*args):
+            out = real(*args)
+            rec.setdefault("covs", {})[frame[0]] = out
+            rec["cov_args"] = args
+            return out
+        return call
+
+    return [(session_mod.SlamSession, "process_frame", process),
+            (session_mod.SlamSession, "_imu_prior", prior),
+            (session_mod, "estimate_pose_covariance", cov)]
+
+
+def read_counter(reads: list):
+    """A patch target counting each frame's host reads, with the fuser's
+    mode before the frame and the frame's state."""
+    from mageslam_tpu_torch.runtime import session as session_mod
+
+    def wrap(real):
+        def call(self, *args, **kwargs):
+            mode = self.fuser.mode.name
+            with HostReads() as hr:
+                out = real(self, *args, **kwargs)
+            reads.append((mode, out.state.name, out.is_keyframe, hr.count))
+            return out
+        return call
+    return (session_mod.SlamSession, "process_frame", wrap)
+
+
+def recorded_calls(ref: dict) -> dict:
+    """frame → (R, t, covariance) the JAX session gave Fuser.process_frame."""
+    calls = {}
+    for i in np.flatnonzero(ref["call_has"]):
+        cov = ref["call_cov"][i]
+        calls[int(i)] = ((None, None, None) if not ref["call_pose"][i] else
+                         (ref["call_R"][i], ref["call_t"][i],
+                          None if np.isnan(cov).any() else cov))
+    return calls
+
+
+def check_replays(device, ref: dict, samples: list) -> dict:
+    """The three filters replayed on the card on the JAX run's recorded
+    samples and visual poses, against JAX's replays (SIMPLE6DOF: its
+    session's own fuser)."""
+    from mageslam_tpu_torch.apps.vi_eval import replay_fuser
+    from mageslam_tpu_torch.config import FilterType
+    from mageslam_tpu_torch.fuser.fuser import FuserMode
+
+    calls, out = recorded_calls(ref), {}
+    for name in ("SIMPLE6DOF", "FUSER6DOF", "FUSER3DOF"):
+        pre = "" if name == "SIMPLE6DOF" else f"rp_{name}_"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = replay_fuser(getattr(FilterType, name), samples, calls, int(ref["adopt_frame"]),
+                           VI_FRAMES, device=device)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = ref[pre + "metric_scale"]
+        known = ~np.isnan(want)
+        scale_err = (float(np.max(np.abs(got["metric_scale"][known] / want[known] - 1)))
+                     if known.any() else 0.0)
+        errs = {k: float(np.nanmax(np.abs(got[k] - ref[pre + k])))
+                for k in ("prior_R", "prior_t", "ekf_q", "ekf_p", "ekf_v", "ekf_bg", "ekf_ba")
+                if got["prior_valid"].any() or not k.startswith("prior")}
+        errs["ekf_P"] = float(np.abs(got["ekf_P"] - ref[pre + "ekf_P"]).max()
+                              / np.abs(ref[pre + "ekf_P"]).max())
+        if (not np.array_equal(got["mode"], ref[pre + "mode"])
+                or not np.array_equal(np.isnan(got["metric_scale"]), ~known)
+                or scale_err > VI_REPLAY_SCALE_RTOL
+                or not np.array_equal(got["prior_valid"], ref[pre + "prior_valid"])
+                or max(errs.values()) > VI_REPLAY_ATOL):
+            raise AssertionError(f"{name} replay: modes {got['mode'].tolist()}, JAX "
+                                 f"{ref[pre + 'mode'].tolist()}; scale err {scale_err:.3g}; "
+                                 f"errors {errs}")
+        modes = got["mode"].tolist()
+        out[name] = {"scale": None if not known.any() else float(got["metric_scale"][-1]),
+                     "ms": ms, "errs": errs,
+                     "transitions": {m.name: modes.index(m.value) for m in FuserMode
+                                     if m.value in modes}}
+        phase("vi", f"{name} replayed on the JAX run's samples and visual poses: modes as "
+                    f"JAX's (transitions {out[name]['transitions']}), metric scale "
+                    f"{out[name]['scale']} (err {scale_err:.3g}, limit "
+                    f"{VI_REPLAY_SCALE_RTOL}), max errors {({k: round(v, 8) for k, v in errs.items()})} "
+                    f"(limit {VI_REPLAY_ATOL}; P relative); {ms:.1f} ms for 80 frames")
+    return out
+
+
+def check_vi_run(run: dict, rec: dict, maps: list, ref: dict, faults: list) -> dict:
+    """The measured VI run against the JAX run: frames, masks, modes, the
+    metric scale, priors and covariances. Faults are collected."""
+    sess = run["sess"]
+    k = float(ref["map_scale"]) / sess.map_scale
+    out = {"k": k}
+    try:
+        out["pose_err"], out["count_err"], _ = hold_run(run["results"], maps, ref, "", k, "vi")
+    except AssertionError as e:
+        faults.append(str(e))
+    errs = [frame_error(r, {n: ref[f"ref_{n}"] for n in ("state", "is_kf", "tracked", "R",
+                                                            "t")}, j, k)
+            for j, r in enumerate(run["results"])]
+    out["over"] = [(r.frame_id, round(e, 6)) for r, (e, _) in zip(run["results"], errs)
+                   if e > POSE_ATOL]
+    if rec["modes"] != ref["mode"].tolist():
+        faults.append(f"vi: fuser modes {rec['modes']}, JAX {ref['mode'].tolist()}")
+    scale = sess.fuser.metric_scale
+    want = float(ref["final_metric_scale"])
+    out["scale_err"] = abs(scale / k / want - 1.0)
+    if out["scale_err"] > VI_SCALE_RTOL:
+        faults.append(f"vi: metric scale {scale} (in JAX's map units {scale / k}), JAX "
+                      f"{want}: {out['scale_err']:.3g} relative (limit {VI_SCALE_RTOL})")
+    priors = {i: (p.R.cpu().numpy(), p.t.cpu().numpy()) for i, p in rec["priors"].items()}
+    if sorted(priors) != np.flatnonzero(ref["prior_valid"]).tolist():
+        faults.append(f"vi: priors on frames {sorted(priors)}, JAX "
+                      f"{np.flatnonzero(ref['prior_valid']).tolist()}")
+    out["prior_err"] = {i: float(max(np.abs(R - ref["prior_R"][i]).max(),
+                                     np.abs(t * k - ref["prior_t"][i]).max()))
+                        for i, (R, t) in priors.items() if ref["prior_valid"][i]}
+    D = np.diag([k, k, k, 1.0, 1.0, 1.0])
+    covs = {i: (c.cpu().numpy(), bool(ok)) for i, (c, ok) in rec["covs"].items()}
+    if sorted(covs) != np.flatnonzero(ref["cov_ok"] >= 0).tolist():
+        faults.append(f"vi: covariances on frames {sorted(covs)}, JAX "
+                      f"{np.flatnonzero(ref['cov_ok'] >= 0).tolist()}")
+    out["cov_ok_differs"] = [i for i, (_, ok) in covs.items() if ok != bool(ref["cov_ok"][i])]
+    out["cov_err"] = {i: float(np.abs(D @ c @ D - ref["cov"][i]).max()
+                               / np.abs(ref["cov"][i]).max())
+                      for i, (c, ok) in covs.items() if ok and ref["cov_ok"][i] > 0}
+    other_inliers = {r.frame_id for r in run["results"]
+                     if r.tracked_count != int(ref["ref_tracked"][r.frame_id])}
+    out["cov_logged"] = {i: round(e, 4) for i, e in out["cov_err"].items()
+                         if i in other_inliers}
+    over_cov = {i: e for i, e in out["cov_err"].items()
+                if e > (VI_COV_LOGGED_ATOL if i in other_inliers else VI_COV_ATOL)}
+    out["prior_logged"] = {i: round(e, 6) for i, e in out["prior_err"].items()
+                           if e > POSE_ATOL}
+    over_prior = {i: e for i, e in out["prior_err"].items()
+                  if e > VI_PRIOR_LOGGED.get(i, POSE_ATOL)}
+    if out["cov_ok_differs"] or over_cov or over_prior:
+        faults.append(f"vi: covariance flags differ on {out['cov_ok_differs']}, covariances "
+                      f"beyond the tolerance {over_cov} (limit {VI_COV_ATOL}, "
+                      f"{VI_COV_LOGGED_ATOL} where the tracked count differs), priors beyond "
+                      f"the tolerance {over_prior}")
+    return out
+
+
+def check_vi_queries(sess, ref: dict, k: float, card: str, faults: list) -> dict:
+    """The live queries, then fossilize_map: trajectory and ATE, the raw and
+    denoised clouds and the volume of interest, against the JAX run's."""
+    from mageslam_tpu_torch.analysis.clouds import reposition_points
+    from mageslam_tpu_torch.apps.evaluate import ate_rmse
+
+    out = {}
+    live = sess.get_tracking_results_for_frames(range(VI_FRAMES))
+    has = np.asarray([m is not None for m in live])
+    if not np.array_equal(has, ref["live_has"]):
+        faults.append(f"vi: live tracking results on {has.sum()} frames, JAX "
+                      f"{int(ref['live_has'].sum())}")
+    else:
+        out["live_err"] = max_mat_err(np.stack([m for m in live if m is not None]),
+                                      ref["live_mats"][has], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    voi = sess.try_get_volume_of_interest()
+    out["live_voi_ms"] = (time.perf_counter() - t0) * 1e3
+    out["live_voi_err"] = voi_error(voi, ref, "live_voi", k, faults)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fm = sess.fossilize_map()
+    out["fossilize_map_ms"] = (time.perf_counter() - t0) * 1e3
+    ids, mats = fm.trajectory()
+    if ids.tolist() != ref["fossil_ids"].tolist():
+        faults.append(f"vi: fossilized frames {ids.tolist()}, JAX "
+                      f"{ref['fossil_ids'].tolist()}")
+    else:
+        errs = np.maximum(np.abs(mats[:, :3, :3] - ref["fossil_mats"][:, :3, :3]).max((1, 2)),
+                          np.abs(mats[:, :3, 3] * k - ref["fossil_mats"][:, :3, 3]).max(1))
+        out["fossil_over"] = [(int(f), round(float(e), 6)) for f, e in zip(ids, errs)
+                              if e > VI_LOGGED.get(int(f), POSE_ATOL)]
+        if out["fossil_over"]:
+            faults.append(f"vi: fossilized poses beyond the tolerance {out['fossil_over']}")
+    with np.load(PHOTOREAL_FIXTURE) as z:
+        ts_all, gt_c = z["timestamps"], z["gt_c"]
+    centers = np.asarray([-m[:3, :3].T @ m[:3, 3] for m in mats])
+    out["ate"], out["n_poses"] = ate_rmse(ts_all[ids], centers, ts_all, gt_c)
+    gt_seq = gt_c[ids]
+    out["scale_true"] = (float(np.linalg.norm(np.diff(gt_seq, axis=0), axis=1).sum())
+                         / float(np.linalg.norm(np.diff(centers, axis=0), axis=1).sum()))
+    if not (out["ate"] < ATE_LIMIT and abs(out["ate"] - float(ref["jax_ate"])) <= VI_ATE_ATOL
+            and out["n_poses"] >= VI_POSES_MIN):
+        faults.append(f"vi: ATE {out['ate']:.6f} m over {out['n_poses']} poses (limit "
+                      f"{ATE_LIMIT}, JAX {float(ref['jax_ate']):.6f} +- {VI_ATE_ATOL})")
+
+    raw = fm.map_points()
+    want_raw = ref["fm_points_raw"]
+    if raw.shape != want_raw.shape:
+        faults.append(f"vi: {len(raw)} fossilized map points, JAX {len(want_raw)}")
+        return out
+    extent = float(np.ptp(want_raw, axis=0).max())
+    out["raw_err"] = float(np.abs(raw * k - want_raw).max()) / extent
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dn = fm.map_points(denoised=True)
+    out["denoised_ms"] = (time.perf_counter() - t0) * 1e3
+    out["denoised_err"] = float(np.abs(dn * k - ref["fm_points"]).max()) / extent
+    if out["denoised_err"] > VI_CLOUD_ATOL:
+        faults.append(f"vi: denoised cloud {out['denoised_err']:.3g} of its extent from "
+                      f"JAX's (limit {VI_CLOUD_ATOL}; raw {out['raw_err']:.3g})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    voi = fm.try_get_volume_of_interest()
+    out["voi_ms"] = (time.perf_counter() - t0) * 1e3
+    out["voi_err"] = voi_error(voi, ref, "fm_voi", k, faults)
+    m = sess.map
+    out["reposition_ms"] = cuda_ms(lambda: reposition_points(m.mp_pos, m.mp_valid), iters=5,
+                                   warmup=1, reps=3)
+    events = profile(lambda: reposition_points(m.mp_pos, m.mp_valid))
+    out["reposition_events"] = len(events)
+    out["reposition_device_ms"] = sum(_device_us(e) for e in events) / 1e3
+    out["reposition_top"] = top_kernels(events)
+    out["n_points"] = int(m.mp_valid.sum())
+    return out
+
+
+def max_mat_err(got: np.ndarray, want: np.ndarray, k: float) -> float:
+    return float(max(np.abs(got[:, :3, :3] - want[:, :3, :3]).max(),
+                     np.abs(got[:, :3, 3] * k - want[:, :3, 3]).max()))
+
+
+def voi_error(voi, ref: dict, key: str, k: float, faults: list) -> float | None:
+    """A volume of interest (scaled into JAX's map units) against JAX's, in
+    voxels of its last level of detail; more than one is a fault."""
+    if (voi is not None) != bool(ref[key + "_ok"]):
+        faults.append(f"vi: {key} {'found' if voi is not None else 'none'}, JAX's "
+                      f"{'found' if ref[key + '_ok'] else 'none'}")
+        return None
+    if voi is None:
+        return 0.0
+    want = ref[key]
+    voxel = float(np.max(want[1] - want[0])) / 23.0
+    err = float(np.abs(np.stack(voi) * k - want).max()) / voxel
+    if err > 1.0:
+        faults.append(f"vi: {key} {np.stack(voi).tolist()} (x {k:.6f}) against JAX's "
+                      f"{want.tolist()}: {err:.3g} voxels")
+    return err
+
+
+def time_fuser_steps(device, sess, cov_args, card: str) -> dict:
+    """ekf_predict on the run's final filter state, and the pose covariance
+    on the last VI-tracked frame's inputs: ms a call (CUDA events) and device
+    events and ms (profiler)."""
+    from mageslam_tpu_torch.fuser.covariance import estimate_pose_covariance
+    from mageslam_tpu_torch.fuser.filters import ekf_predict, ekf_update_pose
+    from mageslam_tpu_torch.geometry.se3 import Pose
+
+    state = sess.fuser.state
+    gyro = torch.tensor([0.01, -0.02, 0.005], device=device)
+    accel = torch.tensor([0.1, 0.2, 9.8], device=device)
+    dt = torch.tensor(1 / 120.0, device=device)
+    pose = Pose(torch.eye(3, device=device), torch.zeros(3, device=device))
+    out = {}
+    for name, fn in (("ekf_predict", lambda: ekf_predict(state, gyro, accel, dt)),
+                     ("ekf_update_pose", lambda: ekf_update_pose(state, pose)),
+                     ("estimate_pose_covariance", lambda: estimate_pose_covariance(*cov_args))):
+        ms = cuda_ms(fn, iters=50, warmup=5, reps=3)
+        events = profile(fn)
+        out[name] = {"ms": ms, "events": len(events),
+                     "device_ms": sum(_device_us(e) for e in events) / 1e3,
+                     "top": top_kernels(events, 3)}
+        phase("vi", f"{name}: {ms:.5f} ms a call (CUDA events, 3 x 50 calls), {len(events)} "
+                    f"device events, {out[name]['device_ms']:.4f} ms of device time a call; "
+                    f"top kernels {out[name]['top']}; {card}")
+    return out
+
+
+def check_vi(device, card: str) -> dict:
+    """Phase 12. Returns the measured run's launch totals."""
+    from mageslam_tpu_torch import golden_path_settings
+    from mageslam_tpu_torch.apps.vi_eval import run_vi_eval, vi_settings
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    ref = load_npz(VI_FIXTURE)
+    photo = load_npz(PHOTOREAL_FIXTURE)
+    frames, ts = list(photo["frames"]), photo["timestamps"]
+    samples = vi_samples(ref)
+    faults, calls, reads = [], [], []
+    clock = time.perf_counter()
+
+    # run 1, the app's entry point: warm, every kernel call captured, the
+    # host reads counted; tests/test_vi_e2e.py's gates on its summary
+    with Patched(*all_kernel_call_recorders(calls, "VI run"), read_counter(reads)):
+        e2e = run_vi_eval(VI_FRAMES, device=device, draws=vi_draws(device),
+                          frames=photo["frames"], verbose=False)
+    tr = e2e["transitions"]
+    want_tr = {m: int(np.argmax(ref["mode"] == v)) for m, v in
+               (("WAIT_FOR_GRAVITY", 1), ("SCALE_INIT", 2), ("TRACKING", 3))}
+    e2e_ok = (e2e["final_mode"] == "TRACKING" and tr.get("SCALE_INIT", 99) < tr.get("TRACKING", -1)
+              and e2e["metric_scale"] is not None
+              and abs(e2e["metric_scale"] - e2e["scale_true"]) / e2e["scale_true"] < VI_TRUTH_RTOL
+              and e2e["tracked"] >= VI_TRACKED_MIN and e2e["n_poses"] >= VI_POSES_MIN
+              and e2e["ate_rmse"] < ATE_LIMIT)
+    phase("vi", f"run_vi_eval(80) on the card, JAX draws replayed: transitions {tr} (JAX "
+                f"{want_tr}), final {e2e['final_mode']}, metric scale {e2e['metric_scale']} "
+                f"(true {e2e['scale_true']:.5f}, limit {VI_TRUTH_RTOL:.0%}), tracked "
+                f"{e2e['tracked']}/80 (limit {VI_TRACKED_MIN}), ATE {e2e['ate_rmse']:.6f} m over "
+                f"{e2e['n_poses']} poses (limit {ATE_LIMIT}; JAX {float(ref['jax_ate']):.6f}), "
+                f"{e2e['keyframes']} keyframes, {e2e['elapsed_s']:.1f} s with every kernel call "
+                f"captured and host reads counted")
+    if tr != want_tr or not e2e_ok:
+        faults.append(f"vi: run_vi_eval's summary misses tests/test_vi_e2e.py's gates or "
+                      f"JAX's transitions: {dict((k, v) for k, v in e2e.items() if k != 'session')}")
+    by_mode = {}
+    for mode, state, kf, n in reads:
+        key = f"{mode}/{state}{'/keyframe' if kf else ''}"
+        by_mode.setdefault(key, set()).add(n)
+    phase("vi", "host reads a frame by (fuser mode before it / frame state): "
+                + str({k: sorted(v) for k, v in sorted(by_mode.items())}))
+    phase("time", f"phase 12, run_vi_eval: {time.perf_counter() - clock:.1f} s")
+
+    # run 2, measured: the session's entry points, JAX draws, held against
+    # the JAX run frame by frame
+    rec, maps = {}, []
+    settings = vi_settings()
+    reset_launch_counts()
+    run = run_from_frame0(device, frames, vi_draws(device), [map_recorder(maps),
+                                                               *vi_recorders(rec)],
+                          cam=ref["cam"], size=PHOTOREAL_SIZE, timestamps=ts,
+                          settings=settings, feed=vi_feed(samples))
+    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    sess = run["sess"]
+    held = check_vi_run(run, rec, maps, ref, faults)
+    try:
+        classes = check_launch_classes(run, "vi")
+    except AssertionError as e:
+        faults.append(str(e))
+        classes = None
+    phase("vi", f"80 frames through SlamSession.add_sensor_sample / process_frame, JAX "
+                f"draws replayed: fuser modes {'as' if rec['modes'] == ref['mode'].tolist() else 'NOT as'} "
+                f"JAX's; max pose err {held.get('pose_err', float('nan')):.3g} (t scaled by "
+                f"{held['k']:.6f}; limit {POSE_ATOL}), frames beyond {held['over'] or 'none'}; "
+                f"metric scale {sess.fuser.metric_scale} ({held['scale_err']:.3g} from JAX's in "
+                f"its map units, limit {VI_SCALE_RTOL}); priors on {len(held['prior_err'])} "
+                f"frames, beyond {POSE_ATOL} (logged after frame 71): "
+                f"{held['prior_logged'] or 'none'}; covariances on {len(held['cov_err'])} "
+                f"frames, flags differing {held['cov_ok_differs'] or 'none'}, max err where the "
+                f"tracked count is JAX's "
+                f"{max(e for i, e in held['cov_err'].items() if i not in held['cov_logged']):.3g} "
+                f"of the largest entry (limit {VI_COV_ATOL}), where it differs "
+                f"{held['cov_logged'] or 'none'} (limit {VI_COV_LOGGED_ATOL}); launches by class "
+                f"{classes}, totals {totals}")
+
+    # run 3: the same frames vision-only, for the wall-time comparison
+    vision = run_from_frame0(device, frames, ReplayDraws.from_npz(PHOTOREAL_FIXTURE, device),
+                             cam=photo["cam"], size=PHOTOREAL_SIZE, timestamps=ts)
+    first_vi = int(np.argmax(ref["prior_valid"]))
+
+    def tracked_ms(r, lo):
+        return [t for j, (t, o) in enumerate(zip(r["ms"], r["obs"])) if j >= lo
+                and not o["was_init"] and not o["keyframe"] and not o["retrained"]
+                and not o.get("detections")]
+    vi_ms, vo_ms = tracked_ms(run, first_vi), tracked_ms(vision, first_vi)
+    phase("vi", f"wall ms a tracked frame (process_frame + synchronize, frames {first_vi}-79, "
+                f"no keyframe): VI (IMU prior, covariance, EKF update) median "
+                f"{statistics.median(vi_ms):.3f} (min {min(vi_ms):.3f}, max {max(vi_ms):.3f}, "
+                f"n = {len(vi_ms)}); vision-only, the same frames, median "
+                f"{statistics.median(vo_ms):.3f} (min {min(vo_ms):.3f}, max {max(vo_ms):.3f}, "
+                f"n = {len(vo_ms)}); {card}")
+    phase("time", f"phase 12, measured and vision-only runs: {time.perf_counter() - clock:.1f} s")
+
+    queries = check_vi_queries(sess, ref, held["k"], card, faults)
+    phase("vi", f"live queries before fossilize: tracking results max err "
+                f"{queries.get('live_err', float('nan')):.3g}, volume of interest "
+                f"{queries['live_voi_err']} voxels from JAX's ({queries['live_voi_ms']:.3f} ms); "
+                f"fossilize_map {queries['fossilize_map_ms']:.3f} ms: ATE "
+                f"{queries['ate']:.6f} m over {queries['n_poses']} poses (JAX "
+                f"{float(ref['jax_ate']):.6f}, limit +- {VI_ATE_ATOL}), fossilized poses beyond "
+                f"{POSE_ATOL}: {queries.get('fossil_over') or 'none'}; scale true "
+                f"{queries['scale_true']:.5f}; {queries.get('n_points')} map points, raw cloud "
+                f"{queries.get('raw_err', float('nan')):.3g} of the extent from JAX's, denoised "
+                f"{queries.get('denoised_err', float('nan')):.3g} (limit {VI_CLOUD_ATOL}) in "
+                f"{queries.get('denoised_ms', float('nan')):.3f} ms; volume of interest "
+                f"{queries.get('voi_err')} voxels from JAX's in "
+                f"{queries.get('voi_ms', float('nan')):.3f} ms; {card}")
+    if "reposition_ms" in queries:
+        phase("vi", f"reposition_points on the 2048-slot bank ({queries['n_points']} valid): "
+                    f"{queries['reposition_ms']:.4f} ms a call (CUDA events), "
+                    f"{queries['reposition_events']} device events, "
+                    f"{queries['reposition_device_ms']:.4f} ms of device time; top "
+                    f"{queries['reposition_top']}; {card}")
+    steps = time_fuser_steps(device, sess, rec["cov_args"], card)
+    replays = check_replays(device, ref, samples)
+    phase("time", f"phase 12, queries and replays: {time.perf_counter() - clock:.1f} s")
+    hold_path_calls(calls, "the VI run")
+    if faults:
+        raise AssertionError("phase 12 (VI): " + " | ".join(faults))
+    return {"totals": totals, "steps": steps, "replays": replays, "queries": queries,
+            "vi_ms": vi_ms, "vision_ms": vo_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2664,6 +3207,8 @@ def main() -> int:
     lap("phase 10 (loop closure)")
     stereo = check_stereo_and_cameras(device, card)
     lap("phase 11 (stereo rig and cameras)")
+    vi = check_vi(device, card)
+    lap("phase 12 (visual-inertial run and the fossilized map)")
 
     # the standalone kernel's top-level row: the adoption's vocabulary call
     ham_row = init["hamming"][(1024, 64)]
@@ -2682,7 +3227,8 @@ def main() -> int:
                    "stereo_mixed_rig_frames_0_23": stereo["mixed"]["totals"][kernel],
                    "distorted_undistort_pixels_frames_0_39": stereo["und_"]["totals"][kernel],
                    "distorted_keypoints_frames_0_39": stereo["kp_"]["totals"][kernel],
-                   "oriented_photoreal_frames_0_29": stereo["orient_"]["totals"][kernel]}
+                   "oriented_photoreal_frames_0_29": stereo["orient_"]["totals"][kernel],
+                   "vi_frames_0_79": vi["totals"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def new_shapes(kind: str) -> dict:

@@ -1,2 +1,3 @@
-"""Applications around the session (port of mageslam_tpu/apps): so far the
-trajectory evaluation."""
+"""Applications around the session (port of mageslam_tpu/apps): the
+trajectory evaluation, the photoreal scene renderer and the
+visual-inertial evaluation."""

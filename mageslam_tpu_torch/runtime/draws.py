@@ -82,6 +82,17 @@ class ReplayDraws:
                 draws[kind] = arrays
         return cls(draws, device)
 
+    @classmethod
+    def from_npzs(cls, sources, device) -> "ReplayDraws":
+        """`from_npz` over several files: `sources` holds (path, kinds)
+        pairs, each kind read from one of them (a run whose init draws are
+        another recorded run's)."""
+        draws = {}
+        for path, kinds in sources:
+            queues = cls.from_npz(path, "cpu", kinds).queues
+            draws.update({k: queues[k] for k in kinds})
+        return cls(draws, device)
+
     def remaining(self) -> dict[str, int]:
         return {k: len(q) for k, q in self.queues.items()}
 

@@ -12,8 +12,9 @@ the frame, and a success is checked on a buffered middle frame
 MaxInitializationIntervalMilliseconds is dropped and the frame becomes the
 new anchor. On success the map is built from the pair (`adopt`): two
 immortal keyframes, the surviving points in the first slots, tracking and
-pose history seeded with both frames, and a vocabulary trained from the
-pair's descriptors with both keyframes indexed.
+pose history seeded with both frames, a vocabulary trained from the
+pair's descriptors with both keyframes indexed, and the fuser, where the
+session has one, told that the map exists.
 
 Meanwhile every frame's descriptors go to a training pool; once the
 session is initialized and TrainingFrames frames are pooled, the
@@ -191,6 +192,10 @@ def adopt(sess, res: InitResult, feats: FrameFeatures, timestamp: float,
     sess.lost_count = 0
     sess.frames_since_keyframe = 0
     sess.last_kf_slot = 1
+    if sess.fuser is not None:
+        # the map exists: the fuser starts converging on gravity (the
+        # stereo bootstrap adopts through here too)
+        sess.fuser.on_mage_initialized()
     return kf1, int(tracked)
 
 

@@ -45,10 +45,21 @@ tether between its two keyframes, and later pairs track the configured
 primary camera (StereoSettings.PrimaryTrackingCamera) under its own
 intrinsics, which its keyframes carry.
 
-Only the visual-inertial fuser (FuserSettings.UseFuser) is not ported: it
-raises at construction. The reference's relay-only machinery (chunk/stream
-cores, grouped fetches, deferred detections, pipeline-depth overrides) has
-no counterpart here.
+With FuserSettings.UseFuser the session owns a `Fuser` (fuser/fuser.py, its
+filter on the session's device): `add_sensor_sample` queues inertial
+samples, adoption starts its mode machine, and every tracked frame hands
+it the visual pose (a failed frame: none). In its TRACKING mode the fuser's
+pose prior replaces the motion model, and the frame's pose covariance
+(fuser/covariance.py) weights the filter's update; the covariance, its
+flag and the pose come back in the tracking outcome's one read, as the
+pose alone does in SCALE_INIT. The fuser's own reads are listed in
+fuser/fuser.py. After the run, `fossilize_map` returns the queryable
+`FossilizedMap` (runtime/fossilized.py: trajectory, denoised cloud, volume
+of interest); `get_tracking_results_for_frames` and
+`try_get_volume_of_interest` answer the same on the live session.
+
+The reference's relay-only machinery (chunk/stream cores, grouped fetches,
+deferred detections, pipeline-depth overrides) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -63,7 +74,10 @@ import torch
 from ..bow.index import add_keyframe as bow_add_keyframe
 from ..bow.index import empty_index, grow_index
 from ..ba.problem import TETHER_TRANSFORM
+from ..analysis.voi import VoiSettings
 from ..config import CameraIdentity, golden_path_settings
+from ..fuser.covariance import estimate_pose_covariance
+from ..fuser.fuser import Fuser, FuserMode
 from ..geometry.camera import make_pinhole
 from ..geometry.se3 import Pose
 from ..interop import load_jax_snapshot, resolve_device
@@ -76,6 +90,7 @@ from ..tracking.stereo_init import stereo_initialize, stereo_settings
 from ..worldmap.map_state import empty_map, grow_map, refresh_membership
 from ..worldmap.operations import add_keyframe_tether
 from .draws import GeneratorDraws
+from .fossilized import FossilizedMap, volume_of_interest
 from .global_ba import global_ba
 from .init_step import BowTraining, InitWindow, adopt, try_initialize
 from .loop_closure import close_loop, detect_loop
@@ -116,9 +131,6 @@ class SlamSession:
                  image_height: int = 180, device="cuda", seed: int = 0, draws=None,
                  camera=None):
         self.settings = settings or golden_path_settings()
-        if self.settings.FuserSettings.UseFuser:
-            raise NotImplementedError(
-                "the visual-inertial fuser (mageslam_tpu/fuser) is not ported yet")
         b = self.settings.Budgets
         self.fes = self.settings.MonoSettings.MonoCamera.FeatureExtractorSettings
         # before init, the reference selection (pipeline.py:264-273)
@@ -176,6 +188,11 @@ class SlamSession:
         self.loop_det_stats = dict.fromkeys(("live", "qualified", "closed"), 0)
         self._grow_pending = False
         self.results: list[FrameResult] = []
+        # the visual-inertial path (pipeline.py:192-200), its filter chosen
+        # by FilterType (SensorFilter.h:99-157: 3Dof / 6Dof / Simple6Dof)
+        self.fuser = (Fuser(filter_type=self.settings.FuserSettings.FilterType,
+                            device=self.device)
+                      if self.settings.FuserSettings.UseFuser else None)
 
     @classmethod
     def from_jax_snapshot(cls, path: str, settings=None, cam=None,
@@ -207,6 +224,13 @@ class SlamSession:
         return sess
 
     # ------------------------------------------------------------------ #
+    def add_sensor_sample(self, sample) -> None:
+        """MAGESlam::AddSensorSample (MageSlam.cpp:250; pipeline.py:295-299):
+        queue an inertial `fuser.SensorSample` for the fuser (no-op when
+        UseFuser is off)."""
+        if self.fuser is not None:
+            self.fuser.add_sample(sample)
+
     def _image(self, image) -> torch.Tensor:
         return torch.as_tensor(image).to(self.device).to(torch.float32)
 
@@ -355,14 +379,50 @@ class SlamSession:
             frame_id=self._scalar(frame_id, torch.int32),
         )
 
+    def _imu_prior(self) -> Pose | None:
+        """The fuser's pose prior (pipeline.py:1071-1077): a device pose in
+        the fuser's TRACKING mode, else None (the motion model's turn)."""
+        return None if self.fuser is None else self.fuser.pose_prior()
+
+    def _outcome(self, res, fuser_mode) -> tuple[bool, int, Pose | None, np.ndarray | None]:
+        """The tracking outcome in one host read: (succeeded, tracked count,
+        the pose as host arrays, the covariance or None). The pose is read
+        where the fuser's SCALE_INIT or TRACKING update takes it, the
+        covariance and its flag in TRACKING (pipeline.py:1800-1820, the
+        reference's (50,) fetch); the covariance is None where its gate
+        failed."""
+        if fuser_mode not in (FuserMode.SCALE_INIT, FuserMode.TRACKING):
+            succeeded, tracked = torch.stack(
+                [res.succeeded.to(torch.int32), res.tracked_count]).tolist()
+            return bool(succeeded), tracked, None, None
+        frame = res.frame
+        parts = [res.succeeded.to(torch.float32)[None], res.tracked_count.to(torch.float32)[None],
+                 frame.pose.R.reshape(-1), frame.pose.t]
+        if fuser_mode == FuserMode.TRACKING:
+            cov, ok = estimate_pose_covariance(frame.pose, frame.cam, frame.kp_xy,
+                                               frame.kp_valid, frame.assoc, self.map.mp_pos,
+                                               self.map.mp_valid)
+            parts += [cov.reshape(-1), ok.to(torch.float32)[None]]
+        out = torch.cat(parts).cpu().numpy()
+        pose = Pose(out[2:11].reshape(3, 3), out[11:14])
+        cov = out[14:50].reshape(6, 6) if len(out) > 14 and out[50] > 0 else None
+        return bool(out[0] > 0), int(out[1]), pose, cov
+
     def _track(self, feats: FrameFeatures, timestamp, frame_id) -> FrameResult:
         """mageslam_tpu/runtime/pipeline.py:1705-1779 `_track`."""
+        prior = self._imu_prior()
         res = track_step(self.settings, self.width, self.height, self.map,
-                         self.history, self._frame(feats, timestamp, frame_id))
-        succeeded, tracked = torch.stack(
-            [res.succeeded.to(torch.int32), res.tracked_count]).tolist()
+                         self.history, self._frame(feats, timestamp, frame_id),
+                         prior_override=prior, prior_valid=prior is not None)
+        succeeded, tracked, pose, cov = self._outcome(
+            res, None if self.fuser is None else self.fuser.mode)
         if not succeeded:
+            if self.fuser is not None:
+                self.fuser.process_frame(None, timestamp)
             return self._tracking_failed(frame_id)
+        if self.fuser is not None:
+            self.fuser.process_frame(res.frame.pose if pose is None else pose, timestamp,
+                                     pose_covariance=cov)
         frame = res.frame
         self.lost_count = 0
         self.frames_since_keyframe += 1
@@ -466,6 +526,44 @@ class SlamSession:
         self.loop_det_stats["closed"] += 1
         return True
 
+    def estimate_pose_covariance(self, frame: TrackedFrame) -> tuple[np.ndarray, bool]:
+        """A tracked frame's 6×6 pose covariance from reprojection Jacobians
+        against the current map (Fuser::EstimatePoseCovariance, Fuser.h:51-75;
+        pipeline.py:1781-1798). Returns (covariance (6, 6) in [rho, phi]
+        twist order, ok) as numpy, in one host read."""
+        cov, ok = estimate_pose_covariance(frame.pose, frame.cam, frame.kp_xy, frame.kp_valid,
+                                           frame.assoc, self.map.mp_pos, self.map.mp_valid)
+        out = torch.cat([cov.reshape(-1), ok.to(torch.float32)[None]]).cpu().numpy()
+        return out[:36].reshape(6, 6), bool(out[36] > 0)
+
+    def get_tracking_results_for_frames(self, frame_ids) -> list[np.ndarray | None]:
+        """Live-session trajectory query (MAGESlam::GetTrackingResultsForFrames,
+        MageSlam.h:161; pipeline.py:2572-2583): per requested frame id, the
+        current world→camera 4×4 view matrix re-derived from the pose
+        history against today's keyframe poses, or None if the frame was
+        never tracked or its connections died."""
+        return FossilizedMap(self.map, self.pose_history, self.fes).get_tracking_results(
+            frame_ids)
+
+    def try_get_volume_of_interest(self, settings: VoiSettings | None = None):
+        """Live-session VOI query (MAGESlam::TryGetVolumeOfInterest,
+        MageSlam.h:178; pipeline.py:2585-2605): (min corner, max corner) of
+        interesting space from the pose history's view frusta, or None while
+        uninitialized, with fewer than two poses or when nothing passes."""
+        if not self.initialized:
+            return None
+        poses, valid = self.pose_history.derive_poses(self.map.kf_pose)
+        h = self.pose_history
+        return volume_of_interest(poses, valid & (h.far > 0), h.near, h.far,
+                                  settings or VoiSettings(), min_poses=2)
+
+    def fossilize_map(self, global_ba_steps: int | None = None) -> FossilizedMap:
+        """Fossilize and return the queryable FossilizedMap
+        (MAGESlam::Fossilize -> FossilizedMap, MageSlam.h:109-128;
+        pipeline.py:2631-2637)."""
+        self.fossilize(global_ba_steps)
+        return FossilizedMap(self.map, self.pose_history, self.fes)
+
     def fossilize(self, global_ba_steps: int | None = None):
         """MAGESlam::Fossilize (MageSlam.cpp:322-383; pipeline.py:2607-2628):
         the final global BA (GraphOptimizationSettings.NumSteps steps unless
@@ -476,17 +574,7 @@ class SlamSession:
             self.settings.GraphOptimizationSettings.NumSteps
         if self.initialized and steps > 0:
             self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot, steps)
-        poses, valid = self.pose_history.derive_poses(self.map.kf_pose)
-        mats = torch.zeros(poses.R.shape[:-2] + (4, 4), dtype=torch.float32,
-                           device=poses.R.device)
-        mats[..., :3, :3] = poses.R
-        mats[..., :3, 3] = poses.t
-        mats[..., 3, 3] = 1.0
-        ids = self.pose_history.frame_id.cpu().numpy()
-        ok = valid.cpu().numpy()
-        mats = mats.cpu().numpy()
-        order = np.argsort(ids[ok], kind="stable")
-        return ids[ok][order], mats[ok][order]
+        return FossilizedMap(self.map, self.pose_history, self.fes).trajectory()
 
     # the state the frame loop changes; settings, calibration and the
     # session's draw source itself are not part of a snapshot
@@ -498,6 +586,8 @@ class SlamSession:
         """An in-memory snapshot of the live session (pipeline.py:1485-1513):
         the map, histories, index, counters, the vocabulary's training pool
         and retrained flag, the init window and the draw source's position.
+        As in the reference, the fuser's state (the visual-inertial path)
+        is not part of it.
         Every state update makes new tensors, so the snapshot holds
         references, not copies. `restore_state` rewinds to it."""
         snap = {a: getattr(self, a) for a in self._SNAP_ATTRS}

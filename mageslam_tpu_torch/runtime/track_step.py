@@ -1,6 +1,8 @@
 """The per-frame tracking step: motion prior → guided match cascade →
 two-stage track-local-map (port of the reference's `_build_track_core`,
-mageslam_tpu/runtime/pipeline.py:848-907)."""
+mageslam_tpu/runtime/pipeline.py:848-907). A valid IMU pose prior (the
+fuser's, in its TRACKING mode) replaces the motion model; the flag is the
+host's, so the step branches instead of selecting on the device."""
 
 from __future__ import annotations
 
@@ -13,15 +15,19 @@ from ..worldmap.map_state import MapState
 
 
 def track_step(settings, width: int, height: int, map_state: MapState,
-               history: TrackingHistory, frame: TrackedFrame) -> TrackLocalMapResult:
-    """Track one frame against the map. `succeeded` is the guided cascade's
-    and track-local-map's success together. Nothing here waits on the
-    device."""
+               history: TrackingHistory, frame: TrackedFrame,
+               prior_override: Pose | None = None,
+               prior_valid: bool = False) -> TrackLocalMapResult:
+    """Track one frame against the map from the motion model's prior, or
+    from `prior_override` where `prior_valid`. `succeeded` is the guided
+    cascade's and track-local-map's success together. Nothing here waits on
+    the device."""
     ts = settings.TrackLocalMapSettings
     ps = settings.PoseEstimationSettings
     fes = settings.MonoSettings.MonoCamera.FeatureExtractorSettings
 
-    prior = estimate_next_pose_from_history(history, frame.timestamp)
+    prior = (prior_override if prior_valid else
+             estimate_next_pose_from_history(history, frame.timestamp))
     frame = frame._replace(pose=Pose(prior.R, prior.t))
     gm = estimate_pose_with_prior(
         frame, history, map_state.mp_pos, map_state.mp_valid,

@@ -52,8 +52,9 @@ def test_bench_world_equals_bench_py():
 
 def test_port_stands_alone(tmp_path):
     """A copy of the package, imported where neither the repo nor the JAX
-    package is on the path, tracks a frame and maps a keyframe on the CPU
-    and loads no module of jax or mageslam_tpu."""
+    package is on the path, tracks a frame and maps a keyframe on the CPU,
+    imports every one of its modules (the fuser, the analysis and the apps
+    among them) and loads no module of jax or mageslam_tpu."""
     shutil.copytree(os.path.join(REPO, "mageslam_tpu_torch"),
                     tmp_path / "mageslam_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -82,6 +83,10 @@ def test_port_stands_alone(tmp_path):
         "                               float(z['ev0_map_scale']))\n"
         "assert ki == 3 and int(new_map.kf_valid.sum()) == 4, ki\n"
         "assert int(new_map.mp_valid.sum()) > int(pre[0].mp_valid.sum())\n"
+        "import importlib, pkgutil\n"
+        "for mod in pkgutil.walk_packages(m.__path__, 'mageslam_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "assert 'mageslam_tpu_torch.fuser.fuser' in sys.modules\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(\n"
         "    ('jax.', 'jaxlib', 'mageslam_tpu.')) or k == 'mageslam_tpu')\n"
         "print(state, bad)\n"
@@ -105,3 +110,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.load_jax_snapshot(FIXTURE)
     assert SlamSession(golden_path_settings(), cam, 640, 480, device="cpu").device.type == "cpu"
+    # the visual-inertial path's entry points too
+    from mageslam_tpu_torch.apps.vi_eval import run_vi_eval, vi_settings
+    from mageslam_tpu_torch.fuser import Fuser, ekf_init
+
+    for make in (Fuser, ekf_init, lambda: SlamSession(vi_settings(), cam, 640, 480),
+                 lambda: run_vi_eval(1, frames=np.zeros((1, 180, 320), np.uint8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Fuser(device="cpu").state.P.device.type == "cpu"

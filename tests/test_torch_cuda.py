@@ -4,7 +4,10 @@ tracking slice and the first mapping event against the stored JAX outputs,
 local BA with live tethers against the same run on the CPU, the vocabulary
 against the CPU, mono init from frame 0 against the JAX session, and
 relocalization, loop detection and closure, the photoreal run's first
-frames with a snapshot restored against the stored JAX outputs.
+frames with a snapshot restored against the stored JAX outputs, and the
+visual-inertial path: the fuser's float32 products, its three filters
+replayed on the JAX run's inputs, the VI session's first 26 frames and the
+fossilized map's queries.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -553,3 +556,114 @@ def test_snapshot_restore_on_the_card(cuda_device):
         assert torch.equal(a.pose.R, b.pose.R) and torch.equal(a.pose.t, b.pose.t)
     for name, x in to_numpy(sess.map).items():
         np.testing.assert_array_equal(x, map1[name], err_msg=name)
+
+
+def test_fuser_products_on_the_card_keep_float32(cuda_device):
+    """The filter's update on the card: its 15×15 products run in full
+    float32 (TF32 off), so the Joseph-form covariance agrees with a float64
+    evaluation to float32 rounding (TF32 keeps ~3 digits)."""
+    from mageslam_tpu_torch.fuser import filters
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=4)
+    A = rng.normal(scale=0.1, size=(15, 15))
+    leaves = [q / np.linalg.norm(q), rng.normal(size=3), rng.normal(size=3),
+              rng.normal(scale=1e-2, size=3), rng.normal(scale=1e-1, size=3),
+              A @ A.T + 1e-2 * np.eye(15)]
+    H, r = rng.normal(size=(6, 15)), rng.normal(size=6)
+    B = rng.normal(size=(6, 6))
+    Rm = 0.1 * (B @ B.T + np.eye(6))
+    state = filters.EkfState(*[torch.tensor(x, dtype=torch.float32, device=cuda_device)
+                               for x in leaves])
+    got = filters._kalman(state, *[torch.tensor(x, dtype=torch.float32, device=cuda_device)
+                                   for x in (H, r, Rm)])
+    P = np.asarray(leaves[5], np.float32).astype(np.float64)
+    H64, Rm64 = (np.asarray(x, np.float32).astype(np.float64) for x in (H, Rm))
+    K = P @ H64.T @ np.linalg.inv(H64 @ P @ H64.T + Rm64)
+    IKH = np.eye(15) - K @ H64
+    want = IKH @ P @ IKH.T + K @ Rm64 @ K.T
+    assert float(np.abs(got.P.cpu().numpy() - want).max() / np.abs(want).max()) < 1e-5
+
+
+def test_fuser_replays_on_the_card_match_jax(cuda_device):
+    """The three filters replayed on the card on the JAX VI run's samples
+    and visual poses (chip_smoke.py phase 12's check)."""
+    ref = chip_smoke.load_npz(chip_smoke.VI_FIXTURE)
+    out = chip_smoke.check_replays(cuda_device, ref, chip_smoke.vi_samples(ref))
+    assert out["FUSER3DOF"]["scale"] is None and out["SIMPLE6DOF"]["scale"] > 0
+
+
+def test_vi_window_on_the_card_matches_jax(cuda_device):
+    """tests/test_torch_vi.py's window (frames 0-25: adoption at 5,
+    SCALE_INIT at 6, TRACKING at 17, IMU priors from 18) on the card, JAX
+    draws replayed: the fuser's modes, states, keyframe flags and poses."""
+    from mageslam_tpu_torch.apps.vi_eval import run_vi_eval
+
+    ref = chip_smoke.load_npz(chip_smoke.VI_FIXTURE)
+    with np.load(chip_smoke.PHOTOREAL_FIXTURE) as z:
+        frames = z["frames"][:26]
+    out = run_vi_eval(26, period=80, verbose=False, device=cuda_device,
+                      draws=chip_smoke.vi_draws(cuda_device), frames=frames)
+    assert out["transitions"] == {"WAIT_FOR_GRAVITY": 5, "SCALE_INIT": 6, "TRACKING": 17}
+    sess = out["session"]
+    k = float(ref["map_scale"]) / sess.map_scale
+    want = {n: ref[f"ref_{n}"] for n in ("state", "is_kf", "tracked", "R", "t")}
+    for j, r in enumerate(sess.results):
+        err, d_count = chip_smoke.frame_error(r, want, j, k)
+        assert err <= chip_smoke.POSE_ATOL and d_count <= chip_smoke.TRACKED_TOL, (j, err)
+    assert abs(out["metric_scale"] / k / float(ref["metric_scale"][17]) - 1) <= 1e-3
+
+
+def test_fossilized_map_on_the_card_matches_jax(cuda_device):
+    """FossilizedMap and the live queries on the JAX photoreal session's end
+    state, on the card: trajectory, volume of interest and the denoised
+    cloud (its normals' signs are the card's solver's: within 2e-3 of the
+    cloud's extent)."""
+    from mageslam_tpu_torch import interop
+    from mageslam_tpu_torch.runtime.fossilized import FossilizedMap
+    from mageslam_tpu_torch.runtime.pose_history import PoseHistory
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    photo = chip_smoke.load_npz(chip_smoke.PHOTOREAL_FIXTURE)
+    ref = chip_smoke.load_npz(chip_smoke.VI_FIXTURE)
+    m = interop.unflatten(MapState, "final_map", photo, cuda_device)
+    ph = interop.unflatten(PoseHistory, "pr_ph", ref, cuda_device)
+    fm = FossilizedMap(m, ph, golden_path_settings().MonoSettings.MonoCamera
+                       .FeatureExtractorSettings)
+    ids, mats = fm.trajectory()
+    np.testing.assert_array_equal(ids, np.flatnonzero(ref["pr_live_has"]))
+    np.testing.assert_allclose(mats, ref["pr_live_mats"][ref["pr_live_has"]], atol=1e-5)
+    raw = fm.map_points()
+    np.testing.assert_array_equal(raw, ref["pr_fm_points_raw"])
+    extent = float(np.ptp(raw, axis=0).max())
+    np.testing.assert_allclose(fm.map_points(denoised=True), ref["pr_fm_points"], rtol=0,
+                               atol=2e-3 * extent)
+    np.testing.assert_allclose(np.stack(fm.try_get_volume_of_interest()), ref["pr_fm_voi"],
+                               atol=1e-4)
+    sess = SlamSession(golden_path_settings(), photo["cam"], *chip_smoke.PHOTOREAL_SIZE,
+                       cuda_device)
+    sess.map, sess.pose_history, sess.initialized = m, ph, True
+    np.testing.assert_allclose(np.stack(sess.try_get_volume_of_interest()),
+                               ref["pr_live_voi"], atol=1e-4)
+
+
+def test_vi_run_on_the_card_matches_jax(cuda_device):
+    """The whole 80-frame VI run on the card (chip_smoke.py phase 12's
+    measured run): the fuser's modes, every frame, the metric scale, the
+    priors and covariances and the masks as JAX's, with photoreal frame
+    71's borderline inliers held to their logged ceilings (ROADMAP queue
+    3)."""
+    from mageslam_tpu_torch.apps.vi_eval import vi_settings
+
+    ref = chip_smoke.load_npz(chip_smoke.VI_FIXTURE)
+    photo = chip_smoke.load_npz(chip_smoke.PHOTOREAL_FIXTURE)
+    rec, maps, faults = {}, [], []
+    run = chip_smoke.run_from_frame0(
+        cuda_device, list(photo["frames"]), chip_smoke.vi_draws(cuda_device),
+        [chip_smoke.map_recorder(maps), *chip_smoke.vi_recorders(rec)], cam=ref["cam"],
+        size=chip_smoke.PHOTOREAL_SIZE, timestamps=photo["timestamps"],
+        settings=vi_settings(), feed=chip_smoke.vi_feed(chip_smoke.vi_samples(ref)))
+    held = chip_smoke.check_vi_run(run, rec, maps, ref, faults)
+    assert not faults, faults
+    assert held["over"] == [] or [f for f, _ in held["over"]] == [71]

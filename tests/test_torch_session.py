@@ -33,6 +33,7 @@ import torch
 from mageslam_tpu.geometry.se3 import Pose as JaxPose
 from mageslam_tpu_torch import SlamSession, TrackingState, golden_path_settings
 from mageslam_tpu_torch.bow.index import BowIndex
+from mageslam_tpu_torch.fuser import Fuser, SampleType, SensorSample
 from mageslam_tpu_torch.interop import PREFIXES, leaf_names, load_jax_snapshot, to_numpy
 
 torch.set_num_threads(2)
@@ -233,12 +234,19 @@ def test_untracked_paths_fail_loudly():
     r = lost.process_frame(blank, 2.0, 200)
     assert r.state == TrackingState.RELOCALIZING and r.pose is None
     assert lost.lost_count == 3
-    # what is not ported still fails loudly: the visual-inertial fuser
+    # the visual-inertial fuser: a UseFuser session builds its Fuser on the
+    # session's device, and add_sensor_sample reaches its queue
     s = golden_path_settings()
     fused = dataclasses.replace(s, FuserSettings=dataclasses.replace(s.FuserSettings,
                                                                      UseFuser=True))
-    with pytest.raises(NotImplementedError, match="fuser"):
-        SlamSession(fused, (520.0, 520.0, 320.0, 240.0), 640, 480, device="cpu")
+    vi = SlamSession(fused, (520.0, 520.0, 320.0, 240.0), 640, 480, device="cpu")
+    assert isinstance(vi.fuser, Fuser) and vi.fuser.device == vi.device
+    assert vi.fuser.state.q.device == vi.device
+    assert vi.fuser.filter_type == fused.FuserSettings.FilterType
+    vi.add_sensor_sample(SensorSample(SampleType.ACCELEROMETER, 0.01,
+                                      np.array([0.0, 0.0, 9.8], np.float32)))
+    assert len(vi.fuser.queue) == 1
+    assert sess.fuser is None
 
 
 def test_port_runs_without_jax():

@@ -96,7 +96,28 @@ each mapping event, under a prefix):
   (`orient_*`) (~300 s). These sessions' init-attempt draws are stored as
   0 where the attempt's mutual match fails (no sample can pick them).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|all]
+One more holds the reference of the visual-inertial path:
+
+- `vi`: apps/vi_eval.py's default run (SIMPLE6DOF, 120 Hz IMU from
+  `synthesize_imu`, the "sweep" trajectory) on the photoreal fixture's
+  frames (checked first to equal `render_sequence(80, 320, 180)`'s), with
+  the photoreal run's init and vocabulary draws (checked equal; only the
+  relocalizations' draws are stored). Per frame: the session's results
+  (`ref_*`), the fuser's mode, metric scale and EKF state after the frame
+  (`mode`, `metric_scale`, `ekf_*`), the pose prior given before it
+  (`prior_*`), the covariance and its flag where the fuser tracked
+  (`cov`, `cov_ok`), the arguments the session gave `Fuser.process_frame`
+  (`call_*`); the map's masks after each mapping event, the adoption
+  frame, the IMU stream's SHA-256, the live `get_tracking_results_for_frames`
+  / `try_get_volume_of_interest` answers at the end (`live_*`),
+  `fossilize(None)`'s trajectory and ATE, and `fossilize_map`'s denoised
+  and raw clouds and volume of interest (`fm_*`). Then the 3DoF and 6DoF
+  filters replayed on the recorded samples and visual poses
+  (`rp_{FUSER3DOF,FUSER6DOF}_*`), and the photoreal session's end state
+  (its pose history `pr_ph*` beside the photoreal fixture's `final_map*`,
+  its live and fossilized answers `pr_*`) (~300 s).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -108,7 +129,7 @@ tests/data/torch_port_reloc.npz (reloc),
 tests/data/torch_port_loop.npz (loop),
 tests/data/torch_port_stereo.npz (stereo) and
 tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
-torch_port_orient.npz (cameras).
+torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi).
 """
 
 from __future__ import annotations
@@ -1322,10 +1343,288 @@ def main_cameras(out_path: str = CAMERAS_OUT) -> None:
     print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
 
 
+VI_OUT = os.path.join(REPO, "tests", "data", "torch_port_vi.npz")
+VI_FRAMES = 80
+VI_REPLAYS = ("FUSER3DOF", "FUSER6DOF")   # replayed on the recorded visual poses
+EKF_FIELDS = ("q", "p", "v", "bg", "ba", "P")
+
+
+def imu_digest(samples) -> np.bytes_:
+    """SHA-256 of a sample stream: type, timestamp and data of each."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for s in samples:
+        h.update(np.int32(int(s.type)).tobytes() + np.float64(s.timestamp).tobytes()
+                 + np.asarray(s.data, np.float32).tobytes())
+    return np.bytes_(h.hexdigest())
+
+
+def _nan(shape) -> np.ndarray:
+    return np.full(shape, np.nan, np.float32)
+
+
+class FuserTrace:
+    """Per frame of a fuser's run: its mode, metric scale and filter state
+    after the frame, and the pose prior it gave before it (valid, R, t)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.arrays = {"mode": np.full(n, -1, np.int32), "metric_scale": _nan(n),
+                       "prior_valid": np.zeros(n, bool), "prior_R": _nan((n, 3, 3)),
+                       "prior_t": _nan((n, 3))}
+        for f in EKF_FIELDS:
+            self.arrays[f"ekf_{f}"] = None
+
+    def prior(self, i: int, pose) -> None:
+        if pose is not None:
+            self.arrays["prior_valid"][i] = True
+            self.arrays["prior_R"][i] = np.asarray(pose.R)
+            self.arrays["prior_t"][i] = np.asarray(pose.t)
+
+    def after(self, i: int, fuser) -> None:
+        a = self.arrays
+        a["mode"][i] = fuser.mode.value
+        a["metric_scale"][i] = np.nan if fuser.metric_scale is None else fuser.metric_scale
+        for f in EKF_FIELDS:
+            v = np.asarray(getattr(fuser.state, f), np.float32)
+            if a[f"ekf_{f}"] is None:
+                a[f"ekf_{f}"] = np.full((self.n,) + v.shape, np.nan, np.float32)
+            a[f"ekf_{f}"][i] = v
+
+
+def vi_imu():
+    from mageslam_tpu.apps.render_scene import trajectory_pose
+    from mageslam_tpu.apps.vi_eval import synthesize_imu
+
+    return synthesize_imu(trajectory_pose, VI_FRAMES, VI_FRAMES)
+
+
+def replay_fuser(filter_type, imu, calls: dict, adopt_frame: int) -> dict:
+    """A fresh JAX `Fuser` fed the VI session's samples frame by frame and
+    its recorded `process_frame` arguments (`calls`: frame → (pose R, t or
+    None, covariance or None)), told of the map at `adopt_frame`."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.fuser.fuser import Fuser
+    from mageslam_tpu.geometry.se3 import Pose
+
+    f = Fuser(filter_type=filter_type)
+    trace = FuserTrace(VI_FRAMES)
+    it = 0
+    for i in range(VI_FRAMES):
+        ts = i / 30.0
+        while it < len(imu) and imu[it].timestamp <= ts:
+            f.add_sample(imu[it])
+            it += 1
+        if i == adopt_frame:
+            f.on_mage_initialized()
+        if i in calls:
+            R, t, cov = calls[i]
+            trace.prior(i, f.pose_prior())
+            f.process_frame(None if R is None else Pose(jnp.asarray(R), jnp.asarray(t)), ts,
+                            pose_covariance=cov)
+        trace.after(i, f)
+    return trace.arrays
+
+
+def live_queries(sess, prefix: str) -> dict:
+    """The live session's GetTrackingResultsForFrames over every frame
+    (NaN where None) and TryGetVolumeOfInterest."""
+    got = sess.get_tracking_results_for_frames(range(VI_FRAMES))
+    voi = sess.try_get_volume_of_interest()
+    return {f"{prefix}live_has": np.asarray([m is not None for m in got]),
+            f"{prefix}live_mats": np.stack([_nan((4, 4)) if m is None else np.asarray(m, np.float32)
+                                            for m in got]),
+            f"{prefix}live_voi_ok": np.bool_(voi is not None),
+            f"{prefix}live_voi": np.stack(voi) if voi is not None else _nan((2, 3))}
+
+
+def fossilized_answers(fm, prefix: str) -> dict:
+    voi = fm.try_get_volume_of_interest()
+    return {f"{prefix}fm_points": np.asarray(fm.map_points(denoised=True), np.float32),
+            f"{prefix}fm_points_raw": np.asarray(fm.map_points(), np.float32),
+            f"{prefix}fm_voi_ok": np.bool_(voi is not None),
+            f"{prefix}fm_voi": np.stack(voi) if voi is not None else _nan((2, 3))}
+
+
+def photoreal_end_state() -> dict:
+    """tests/test_photoreal_ate.py's session (the photoreal fixture's run)
+    after its 80 frames: its pose history, its live queries and its
+    fossilized map's answers (`pr_*`); its map must equal the fixture's
+    `final_map*`."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.runtime.fossilized import FossilizedMap
+
+    with np.load(PHOTOREAL_OUT) as z:
+        ref = {k: z[k] for k in z.files if k.startswith("final_map") or k in
+               ("frames", "timestamps", "cam")}
+    W, H = PHOTOREAL_SIZE
+    sess = SlamSession(golden_path_settings(), cam=jnp.asarray(ref["cam"]),
+                       image_width=W, image_height=H)
+    for i, (img, ts) in enumerate(zip(ref["frames"], ref["timestamps"])):
+        sess.process_frame(img.astype(np.float32), float(ts), i)
+    for k, v in _flatten("final_map", sess.map).items():
+        if not np.array_equal(v, ref[k]):
+            raise SystemExit(f"the photoreal session's end map differs from the fixture at {k}")
+    arrays = _flatten("pr_ph", sess.pose_history)
+    arrays.update(live_queries(sess, "pr_"))
+    arrays.update(fossilized_answers(FossilizedMap(sess.map, sess.pose_history, sess.fes),
+                                     "pr_"))
+    return arrays
+
+
+def main_vi(out_path: str = VI_OUT) -> None:
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    from mageslam_tpu.apps.evaluate import ate_rmse
+    from mageslam_tpu.apps.render_scene import CX, CY, FX, FY, render_sequence
+    from mageslam_tpu.config import FilterType, golden_path_settings
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.runtime.fossilized import FossilizedMap
+
+    W, H = PHOTOREAL_SIZE
+    with np.load(PHOTOREAL_OUT) as z:
+        photo = {k: z[k] for k in z.files}
+    # the photoreal fixture's frames are apps/vi_eval.py's default sequence
+    for i, (img, *_) in enumerate(render_sequence(VI_FRAMES, W, H)):
+        if not np.array_equal(img, photo["frames"][i]):
+            raise SystemExit(f"frame {i} of render_sequence({VI_FRAMES}, {W}, {H}) differs "
+                             f"from the photoreal fixture's")
+    s = golden_path_settings()
+    s = dataclasses.replace(s, FuserSettings=dataclasses.replace(
+        s.FuserSettings, UseFuser=True, FilterType=FilterType.SIMPLE6DOF))
+    sx, sy = W / 640.0, H / 480.0
+    cam = np.asarray([FX * sx, FY * sy, CX * sx, CY * sy], np.float32)
+    sess = SlamSession(s, cam=jnp.asarray(cam), image_width=W, image_height=H)
+    rec, rrec = InitRecorder(sess), RelocRecorder(sess)
+    events = []
+    mapper = sess._insert_keyframe_and_map
+
+    def recording_mapper(frame, frame_id):
+        mapper(frame, frame_id)
+        events.append((frame_id, {n: np.asarray(getattr(sess.map, n)) for n in EVENT_MASKS}))
+
+    sess._insert_keyframe_and_map = recording_mapper
+    trace = FuserTrace(VI_FRAMES)
+    frame = [0]
+    calls, covs = {}, {}
+    real_prior, real_packed = sess._imu_prior, sess._estimate_cov_packed
+    real_process, real_adopt = sess.fuser.process_frame, sess.fuser.on_mage_initialized
+    adopted = []
+
+    def imu_prior():
+        pose, valid = real_prior()
+        trace.prior(frame[0], pose if bool(valid) else None)
+        return pose, valid
+
+    def packed(res):
+        out = real_packed(res)
+        covs[frame[0]] = (out[:36].reshape(6, 6).copy(), bool(out[36] > 0))
+        return out
+
+    def process(visual_pose, timestamp, pose_covariance=None):
+        calls[frame[0]] = (None, None, None) if visual_pose is None else (
+            np.asarray(visual_pose.R, np.float32), np.asarray(visual_pose.t, np.float32),
+            None if pose_covariance is None else np.asarray(pose_covariance, np.float32))
+        return real_process(visual_pose, timestamp, pose_covariance=pose_covariance)
+
+    def on_init():
+        adopted.append(frame[0])
+        return real_adopt()
+
+    sess._imu_prior, sess._estimate_cov_packed = imu_prior, packed
+    sess.fuser.process_frame, sess.fuser.on_mage_initialized = process, on_init
+    imu = vi_imu()
+    it = 0
+    try:
+        for i in range(VI_FRAMES):
+            frame[0] = i
+            ts = float(photo["timestamps"][i])
+            while it < len(imu) and imu[it].timestamp <= ts:
+                sess.add_sensor_sample(imu[it])
+                it += 1
+            sess.process_frame(photo["frames"][i].astype(np.float32), ts, i)
+            trace.after(i, sess.fuser)
+    finally:
+        rec.close()
+        rrec.close()
+        del sess._insert_keyframe_and_map, sess._imu_prior, sess._estimate_cov_packed
+    arrays = {}
+    # draws: the init, third-frame and vocabulary draws must be the
+    # photoreal run's (the fuser does nothing before adoption); only the
+    # relocalizations' are stored
+    for k, v in rec.result().items():
+        if k.endswith("_draws") and not np.array_equal(v, photo.get(k)):
+            raise SystemExit(f"the VI session's {k} differ from the photoreal run's")
+    arrays.update(rrec.result())
+    arrays.update(session_refs(sess))
+    arrays.update(trace.arrays)
+    arrays["ev_frame_id"] = np.asarray([e[0] for e in events], np.int32)
+    for j, (_, masks) in enumerate(events):
+        arrays.update({f"ev{j}_{n}": v for n, v in masks.items()})
+    arrays["adopt_frame"] = np.int32(adopted[0])
+    arrays["map_scale"] = np.float32(sess.map_scale)
+    arrays["cam"] = cam
+    arrays["imu_sha256"] = imu_digest(imu)
+    arrays["imu_n"] = np.int32(len(imu))
+    n = VI_FRAMES
+    arrays["cov"], arrays["cov_ok"] = _nan((n, 6, 6)), np.full(n, -1, np.int32)
+    for i, (c, ok) in covs.items():
+        arrays["cov"][i], arrays["cov_ok"][i] = c, int(ok)
+    arrays["call_has"] = np.zeros(n, bool)
+    arrays["call_pose"] = np.zeros(n, bool)
+    arrays["call_R"], arrays["call_t"], arrays["call_cov"] = (_nan((n, 3, 3)), _nan((n, 3)),
+                                                              _nan((n, 6, 6)))
+    for i, (R, t, c) in calls.items():
+        arrays["call_has"][i] = True
+        if R is not None:
+            arrays["call_pose"][i], arrays["call_R"][i], arrays["call_t"][i] = True, R, t
+        if c is not None:
+            arrays["call_cov"][i] = c
+    arrays.update(live_queries(sess, ""))
+    ids, mats = sess.fossilize(global_ba_steps=None)
+    arrays["fossil_ids"], arrays["fossil_mats"] = np.asarray(ids, np.int32), mats
+    centers = np.asarray([-m[:3, :3].T @ m[:3, 3] for m in mats])
+    ts_ids = photo["timestamps"][ids]
+    rmse, n_ate = ate_rmse(ts_ids, centers, photo["timestamps"], photo["gt_c"])
+    gt_seq = photo["gt_c"][ids]
+    gt_path = float(np.linalg.norm(np.diff(gt_seq, axis=0), axis=1).sum())
+    est_path = float(np.linalg.norm(np.diff(centers, axis=0), axis=1).sum())
+    arrays["jax_ate"], arrays["jax_ate_n"] = np.float64(rmse), np.int32(n_ate)
+    arrays["scale_true"] = np.float64(gt_path / max(est_path, 1e-12))
+    arrays["final_metric_scale"] = np.float64(sess.fuser.metric_scale)
+    arrays.update(fossilized_answers(sess.fossilize_map(None), ""))
+    for name in VI_REPLAYS:
+        arrays.update(_prefixed(f"rp_{name}_", replay_fuser(getattr(FilterType, name), imu,
+                                                             calls, adopted[0])))
+    arrays.update(photoreal_end_state())
+    _save(out_path, arrays)
+    modes = arrays["mode"]
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes; adopted at {adopted[0]}; "
+          f"modes {modes.tolist()}; metric scale {sess.fuser.metric_scale} (true "
+          f"{float(arrays['scale_true']):.5f}); states {arrays['ref_state'].tolist()}; "
+          f"keyframes {arrays['ref_frame_id'][arrays['ref_is_kf']].tolist()}; "
+          f"{int(arrays['reloc_n'])} relocalizations; detections {rrec.detections}; "
+          f"{len(ids)} fossilized poses, ATE {rmse:.6f} m over {n_ate}; priors on frames "
+          f"{np.flatnonzero(arrays['prior_valid']).tolist()}; cov ok "
+          f"{arrays['cov_ok'].tolist()}; replays "
+          + "; ".join(f"{nm}: modes {arrays[f'rp_{nm}_mode'].tolist()} scale "
+                      f"{arrays[f'rp_{nm}_metric_scale'][-1]}" for nm in VI_REPLAYS))
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "stereo", "cameras", "all"):
+                     "stereo", "cameras", "vi", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -1345,3 +1644,5 @@ if __name__ == "__main__":
         main_stereo()
     if which in ("cameras", "all"):
         main_cameras()
+    if which in ("vi", "all"):
+        main_vi()

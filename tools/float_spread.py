@@ -1,9 +1,10 @@
-"""How far float summation order moves the port's stereo and distorted-camera
-runs, against the JAX runs they are held to (ROADMAP queue 3).
+"""How far float summation order moves the port's stereo, distorted-camera and
+visual-inertial runs, against the JAX runs they are held to (ROADMAP queue 3).
 
     python tools/float_spread.py rig       # the rig-tether session at 1-8 torch threads
     python tools/float_spread.py mixed     # the mixed-FOV rig at 1-8 torch threads
     python tools/float_spread.py warp      # JAX's jitted and eager warp against the port's
+    python tools/float_spread.py vi        # apps/vi_eval.py's 80-frame run at 1-8 threads
 
 `rig` and `mixed` run the port's session (CPU) on tests/test_stereo.py's
 scenes from tests/data/torch_port_stereo.npz with JAX's draws replayed, once
@@ -14,7 +15,13 @@ compares the JAX package's `undistort_image` jitted (as its session runs
 it) and eager with the port's on the distorted scene's frame 13
 (tests/data/torch_port_cameras.npz): the rectify map (also with the
 distortion chain's multiply-adds fused, emulated in float64), the warped
-image, and the two keypoints of the frontend that swap slots.
+image, and the two keypoints of the frontend that swap slots. `vi` runs the
+port's `run_vi_eval` (CPU, SIMPLE6DOF) on the photoreal frames with the JAX
+run's draws, once per thread count, against tests/data/torch_port_vi.npz:
+the fuser's transitions, the largest pose error with t scaled by the
+map-scale ratio (and the frames beyond 1e-3), the metric scale's relative
+error in JAX's map units, mask entries differing after the mapping events,
+and the ATE beside JAX's.
 """
 
 from __future__ import annotations
@@ -51,6 +58,51 @@ def sessions(which: str) -> None:
         print(f"{which}, {n} threads: t err frames 0-17 {max(et[:18]):.3g}, frames 18- "
               f"{max(et[18:]):.3g}; R err {max(eR):.3g}; differing mask entries {masks}; "
               f"mapping events {len(maps)} (JAX {events})", flush=True)
+
+
+def vi() -> None:
+    import torch
+
+    from mageslam_tpu_torch.apps.vi_eval import run_vi_eval
+    from mageslam_tpu_torch.runtime import session as session_mod
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    data = os.path.join(REPO, "tests", "data")
+    photo = os.path.join(data, "torch_port_photoreal.npz")
+    path = os.path.join(data, "torch_port_vi.npz")
+    ref = dict(np.load(path))
+    frames = np.load(photo)["frames"]
+    masks = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
+    real_map = session_mod.SlamSession._insert_keyframe_and_map
+    for n in THREADS:
+        torch.set_num_threads(n)
+        maps = []
+
+        def mapper(self, frame):
+            real_map(self, frame)
+            maps.append(self.map)
+        session_mod.SlamSession._insert_keyframe_and_map = mapper
+        try:
+            draws = ReplayDraws.from_npzs(((photo, ("init", "pnp", "vocab")), (path, ("reloc",))),
+                                          "cpu")
+            out = run_vi_eval(80, verbose=False, device="cpu", draws=draws, frames=frames)
+        finally:
+            session_mod.SlamSession._insert_keyframe_and_map = real_map
+        sess = out["session"]
+        k = float(ref["map_scale"]) / sess.map_scale
+        errs = {r.frame_id: max(float(np.abs(r.pose.R.numpy() - ref["ref_R"][r.frame_id]).max()),
+                                float(np.abs(r.pose.t.numpy() * k
+                                             - ref["ref_t"][r.frame_id]).max()))
+                for r in sess.results if r.pose is not None}
+        diff = sum(int((getattr(m, name).numpy() != ref[f"ev{j}_{name}"]).sum())
+                   for j, m in enumerate(maps) for name in masks)
+        scale = out["metric_scale"] / k / float(ref["final_metric_scale"]) - 1.0
+        print(f"vi, {n} threads: transitions {out['transitions']}; max pose err "
+              f"{max(errs.values()):.3g} (t scaled by {k:.6f}), frames beyond 1e-3 "
+              f"{[(f, round(e, 6)) for f, e in errs.items() if e > 1e-3]}; metric scale "
+              f"{out['metric_scale']:.6f} ({scale:.3g} from JAX's); differing mask entries "
+              f"{diff} over {len(maps)} events (JAX {len(ref['ev_frame_id'])}); ATE "
+              f"{out['ate_rmse']:.6f} m (JAX {float(ref['jax_ate']):.6f})", flush=True)
 
 
 def warp() -> None:
@@ -124,5 +176,7 @@ if __name__ == "__main__":
         sessions(which)
     elif which == "warp":
         warp()
+    elif which == "vi":
+        vi()
     else:
         sys.exit(__doc__)
