@@ -188,6 +188,37 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    - the three filters replayed on the JAX run's recorded samples and
      visual poses, against JAX's replays;
    - every captured kernel call held exactly against its plain version.
+13. The throughput and realtime entry points, from
+   tests/data/torch_port_stream.npz (the JAX session at bench.py's
+   settings, MinKeyframe 3, after frames 0-30, and its stream and pipelined
+   calls from there; `tools/export_jax_state.py stream`):
+   - `process_frame_stream` over bench frames 31-95 from a uint8 bank on the
+     card (chunk 8, `_chunk_pipeline_depth` 4), every kernel call captured:
+     states and keyframe flags exact, R and t within 1e-3, tracked counts
+     within 3, the masks after each mapping step exact and
+     `loop_det_stats` equal to JAX's; run again with the launches counted
+     from 0 (the kernel line's `stream_frames_31_95`) and the host reads;
+   - the same window through `process_frames_chunked` (chunk 4), held
+     against the stream run frame by frame; `process_frame_pipelined` over
+     31-58 against JAX's pipelined call (mapping lags to the resolution);
+     the stream saved to disk after frame 62 (io/snapshot.py), loaded into
+     a fresh card session and continued, against the uninterrupted run;
+   - `process_frame`, `process_frame_stream`, `process_frame_pipelined` and
+     `process_frame_realtime` on frames 31-62, each on a fresh session, in
+     three interleaved rounds (the order reversed every other round): wall
+     ms and host reads a frame each round, and how many frames the realtime
+     gate drops back to back (reported, not asserted); the gate with
+     max_inflight=0 drops every frame as SKIPPED without counting a
+     failure, and paced frames all track; one chunk traced for its device
+     events;
+   - tests/test_stream_loop_ci.py's orbit through `run_orbit_eval(324,
+     288, 240, 135, mode="stream")` with the session's own generator, its
+     gates held (a loop closed, 100 frames tracked, ATE < 0.15 m, deferred
+     detections resolved, one closed from the deferred path);
+   - the console (`python -m mageslam_tpu_torch.apps.console`) as a
+     subprocess on the photoreal frames written to a `.mgts` capture, with
+     the fixture's intrinsics and the JAX run's draws: exit 0, its CSV at
+     ATE < 0.06 m with 80 % tracked.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -1329,14 +1360,14 @@ def device_tracers(traces: dict, names):
 def detection_counter(count: list):
     """A patch target counting the session's loop detections in count[0]:
     each launches the query's word assignment, live or not."""
-    from mageslam_tpu_torch.runtime import session as session_mod
+    from mageslam_tpu_torch.runtime import streaming
 
     def wrap(real):
         def call(*args, **kwargs):
             count[0] += 1
             return real(*args, **kwargs)
         return call
-    return (session_mod, "detect_loop", wrap)
+    return (streaming, "detect_loop", wrap)
 
 
 def run_from_frame0(device, frames, draws, patches=(), cam=CAM, size=(WIDTH, HEIGHT),
@@ -1834,7 +1865,7 @@ def event_diffs(maps: list, ref: dict, device) -> list[tuple[int, dict]]:
 def check_photoreal(device, card: str) -> dict:
     """Phase 8. Returns the run's launch totals and the detection's kernel rows."""
     from mageslam_tpu_torch.apps.evaluate import ate_rmse
-    from mageslam_tpu_torch.runtime import session as session_mod
+    from mageslam_tpu_torch.runtime import streaming as streaming_mod
     from mageslam_tpu_torch.runtime.draws import ReplayDraws
 
     with np.load(PHOTOREAL_FIXTURE) as z:
@@ -1843,14 +1874,14 @@ def check_photoreal(device, card: str) -> dict:
     kw = dict(cam=ref["cam"], size=PHOTOREAL_SIZE, timestamps=ref["timestamps"])
     calls = []
     run_from_frame0(device, frames, ReplayDraws.from_npz(PHOTOREAL_FIXTURE, device),
-                    [inside(session_mod, "detect_loop",
+                    [inside(streaming_mod, "detect_loop",
                             lambda: kernel_call_recorders(calls, "loop detection"))], **kw)
     det_rows, maps, assoc, snaps = [], [], [], {}
     det_frames = [int(f) for f in ref["det_frame"][ref["det_live"] > 0]]
     replay = ReplayDraws.from_npz(PHOTOREAL_FIXTURE, device)
     reset_launch_counts()
     run = run_from_frame0(device, frames, replay,
-                          [step_timers(det_rows, session_mod, "detect_loop"),
+                          [step_timers(det_rows, streaming_mod, "detect_loop"),
                            map_recorder(maps), assoc_recorder(assoc),
                            snapshotter(snaps, det_frames)], **kw)
     totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
@@ -1961,7 +1992,7 @@ def check_photoreal(device, card: str) -> dict:
     traces = []
     differing = retrace(sess, snaps, {r.frame_id: r for r in run["results"]},
                         lambda f: sess.process_frame(frames[f], float(ref["timestamps"][f]), f),
-                        step_tracers(traces, session_mod, "detect_loop"))
+                        step_tracers(traces, streaming_mod, "detect_loop"))
     traces.reverse()
     phase("profile", f"loop detection at frames {det_frames}, each frame run again from "
                      f"the session's snapshot before it (restore_state), traced: (device "
@@ -3119,6 +3150,438 @@ def check_vi(device, card: str) -> dict:
             "vi_ms": vi_ms, "vision_ms": vo_ms}
 
 
+# --------------------------------------------------------------- phase 13 ----
+
+STREAM_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_stream.npz")
+STREAM_FIRST, STREAM_LAST = 31, 95        # the stream window, bench frames
+STREAM_CHUNK, STREAM_DEPTH = 8, 4         # bench.py's depth
+CHUNKED_CHUNK = 4
+PIPELINED_LAST = 58
+SNAPSHOT_LAST = 62                        # the stream saved after 4 chunks, then continued
+TIMED_LAST = 62                           # the entry points timed on 31-62 (4 chunks)
+TIMED_ROUNDS = 3                          # each entry point timed 3 times, interleaved
+REALTIME_PACED, REALTIME_DROPPED = range(31, 39), range(39, 43)
+ORBIT = (324, 288, 240, 135)              # tests/test_stream_loop_ci.py's run
+ORBIT_TRACKED_MIN = 100
+ORBIT_ATE_LIMIT = 0.15
+CONSOLE_TIMEOUT = 600
+DET_STATS = ("deferred", "resolved", "stale_slot", "closed", "requeued", "same_loop_dropped")
+
+
+def stream_settings():
+    """bench.py's settings: golden with LoopClosureSettings.MinKeyframe 3."""
+    import dataclasses
+
+    from mageslam_tpu_torch import golden_path_settings
+
+    s = golden_path_settings()
+    return dataclasses.replace(s, LoopClosureSettings=dataclasses.replace(
+        s.LoopClosureSettings, MinKeyframe=3))
+
+
+def stream_session(device, prefix: str | None):
+    """A card session from the stream fixture's frame-30 state, its
+    relocalization draws replayed from the call `prefix` (None: its own
+    generator), at bench.py's resolution depth."""
+    from mageslam_tpu_torch import SlamSession
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    draws = (None if prefix is None else
+             ReplayDraws.from_npz(STREAM_FIXTURE, device, kinds=("reloc",), prefix=prefix))
+    sess = SlamSession.from_jax_snapshot(STREAM_FIXTURE, stream_settings(), CAM, WIDTH, HEIGHT,
+                                         device, draws=draws)
+    sess._chunk_pipeline_depth = STREAM_DEPTH
+    return sess
+
+
+def stream_event_recorder(events: list):
+    """Patch targets keeping the map's masks right after every mapping step,
+    on the chunk path and the per-frame path."""
+    from mageslam_tpu_torch.runtime import session as session_mod
+    from mageslam_tpu_torch.runtime import streaming
+
+    def wrap(real):
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            events.append((args[5].frame_id, out[2], {n: getattr(out[0], n).clone()
+                                                      for n in MAP_MASKS}))
+            return out
+        return call
+    return [(streaming, "mapping", wrap), (session_mod, "mapping", wrap)]
+
+
+def hold_stream(results, ref: dict, prefix: str, ids, faults: list, events=None) -> dict:
+    """Each result against the JAX call's: states and keyframe flags exact,
+    R and t within POSE_ATOL, tracked counts within TRACKED_TOL; the masks
+    after each mapping step exact."""
+    n = len(results)
+    got_ids = [r.frame_id for r in results]
+    states = [r.state.value for r in results]
+    kfs = [r.is_keyframe for r in results]
+    out = {"pose_err": float("nan"), "count_err": None}
+    if got_ids != list(ids) or states != ref[prefix + "ref_state"][:n].tolist() \
+            or kfs != ref[prefix + "ref_is_kf"][:n].tolist():
+        faults.append(f"{prefix}: ids/states/keyframes differ from JAX's: keyframes at "
+                      f"{[i for i, k in zip(got_ids, kfs) if k]} (JAX "
+                      f"{np.asarray(list(ids))[ref[prefix + 'ref_is_kf'][:n]].tolist()})")
+        return out
+    R = np.stack([np.asarray(torch.as_tensor(r.pose.R).cpu()) for r in results])
+    t = np.stack([np.asarray(torch.as_tensor(r.pose.t).cpu()) for r in results])
+    out["pose_err"] = float(max(np.abs(R - ref[prefix + "ref_R"][:n]).max(),
+                                np.abs(t - ref[prefix + "ref_t"][:n]).max()))
+    out["count_err"] = int(np.abs(np.array([r.tracked_count for r in results])
+                                  - ref[prefix + "ref_tracked"][:n]).max())
+    if not out["pose_err"] <= POSE_ATOL or out["count_err"] > TRACKED_TOL:
+        faults.append(f"{prefix}: pose err {out['pose_err']:.3g} (limit {POSE_ATOL}) or "
+                      f"tracked diff {out['count_err']} (limit {TRACKED_TOL})")
+    if events is not None:
+        ev_ids = [int(e[0]) for e in events]
+        diffs = {}
+        for j, (_, _, masks) in enumerate(events):
+            d = {m: int((masks[m].cpu().numpy() != ref[f"{prefix}ev{j}_{m}"]).sum())
+                 for m in MAP_MASKS if f"{prefix}ev{j}_{m}" in ref}
+            if any(d.values()):
+                diffs[ev_ids[j]] = d
+        out["events"], out["mask_diffs"] = ev_ids, diffs
+        if ev_ids != ref[prefix + "ev_frame_id"].tolist() or diffs:
+            faults.append(f"{prefix}: mapping steps at {ev_ids} (JAX "
+                          f"{ref[prefix + 'ev_frame_id'].tolist()}), masks differing {diffs}")
+    return out
+
+
+def same_results(got, want, what: str, faults: list) -> float:
+    """Two runs' results frame by frame: ids, states, keyframe flags exact,
+    poses within POSE_ATOL and tracked counts within TRACKED_TOL. Returns
+    the largest pose difference."""
+    key = lambda rs: [(r.frame_id, r.state, r.is_keyframe) for r in rs]
+    if key(got) != key(want):
+        faults.append(f"{what}: frames, states or keyframes differ")
+        return float("nan")
+    err, cnt = 0.0, 0
+    for a, b in zip(got, want):
+        if a.pose is not None:
+            err = max(err, float((torch.as_tensor(a.pose.R).cpu() -
+                                  torch.as_tensor(b.pose.R).cpu()).abs().max()),
+                      float((torch.as_tensor(a.pose.t).cpu() -
+                             torch.as_tensor(b.pose.t).cpu()).abs().max()))
+        cnt = max(cnt, abs(a.tracked_count - b.tracked_count))
+    if not err <= POSE_ATOL or cnt > TRACKED_TOL:
+        faults.append(f"{what}: pose difference {err:.3g} or tracked difference {cnt}")
+    return err
+
+
+def timed_entry(device, run, n_frames: int) -> dict:
+    """Wall ms a frame (the whole call, synchronized, over its frames) and
+    host reads a frame of `run(sess)` on a fresh session with its own
+    generator; returns those with run's own return value."""
+    sess = stream_session(device, None)
+    torch.cuda.synchronize()
+    with HostReads() as hr:
+        t0 = time.perf_counter()
+        out = run(sess)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return {"ms_a_frame": wall / n_frames, "reads_a_frame": hr.count / n_frames,
+            "sess": sess, "out": out}
+
+
+_ORBIT_SCENE: dict = {}
+
+
+def _orbit_worker() -> None:
+    from mageslam_tpu_torch.apps.render_scene import build_scene
+
+    _ORBIT_SCENE["surfaces"] = build_scene(7, variant="loop")
+
+
+def _render_orbit_frame(i: int):
+    """Frame i of `render_sequence(*ORBIT's size, trajectory="orbit")`, the
+    same bit for bit (seed 7, 30 fps, supersampled 2x below 640 wide)."""
+    from mageslam_tpu_torch.apps.render_scene import render_frame, trajectory_pose_orbit
+
+    _, period, w, h = ORBIT
+    R, c = trajectory_pose_orbit(i, period)
+    img = render_frame(_ORBIT_SCENE["surfaces"], R, c, w, h, frame_index=i, supersample=2)
+    return img, i / 30.0, i, R, c
+
+
+def start_orbit_render():
+    """The orbit's frames, rendered in the background by one spawned process
+    fewer than the machine has cores while the held stream runs use the
+    card (sequentially they take as long as the orbit's run). Returns
+    (pool, pending); the frames are `pending.get()`."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 2) - 1),
+                                                     _orbit_worker)
+    return pool, pool.map_async(_render_orbit_frame, range(ORBIT[0]))
+
+
+def check_orbit(device, render, faults: list) -> dict:
+    """tests/test_stream_loop_ci.py's stream-path orbit on the card with the
+    session's own generator, on the frames `start_orbit_render` made."""
+    from mageslam_tpu_torch.apps.loop_eval import run_orbit_eval
+
+    n, period, w, h = ORBIT
+    pool, pending = render
+    t0 = time.perf_counter()
+    frames = pending.get()
+    pool.close()
+    pool.join()
+    wait_s = time.perf_counter() - t0
+    r = run_orbit_eval(n, period, w, h, verbose=False, mode="stream", device=device,
+                       frames=frames)
+    st = r["loop_det_stats"]
+    ok = (r["loops_closed"] >= 1 and r["tracked"] >= ORBIT_TRACKED_MIN
+          and r["ate_rmse"] < ORBIT_ATE_LIMIT and st["deferred"] > 0
+          and st["resolved"] >= st["deferred"] and st["closed"] >= 1)
+    phase("stream", f"orbit {n} frames at {w}x{h} (period {period}) through "
+                    f"process_frames_chunked, own generator: {r['loops_closed']} loops closed, "
+                    f"tracked {r['tracked']} (limit {ORBIT_TRACKED_MIN}), {r['keyframes']} "
+                    f"keyframes, ATE {r['ate_rmse']:.6f} m over {r['n_poses']} poses (limit "
+                    f"{ORBIT_ATE_LIMIT}), loop_det_stats {st}; frames waited for {wait_s:.1f} s "
+                    f"after the held runs, run {r['elapsed_s']:.1f} s")
+    if not ok:
+        faults.append(f"orbit misses tests/test_stream_loop_ci.py's gates: "
+                      f"{ {k: v for k, v in r.items() if k != 'states'} }")
+    return r
+
+
+def check_console(device, faults: list) -> dict:
+    """The console on the photoreal frames written to a `.mgts` capture, as a
+    subprocess on the card with the fixture's intrinsics (and the JAX run's
+    draws replayed), its CSV held to tests/test_photoreal_ate.py's gate."""
+    import tempfile
+
+    from mageslam_tpu_torch.apps.evaluate import ate_rmse, load_trajectory_csv
+    from mageslam_tpu_torch.io.capture import CaptureHeader, CaptureWriter
+
+    ref = load_npz(PHOTOREAL_FIXTURE)
+    w, h = PHOTOREAL_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, csv = os.path.join(tmp, "photoreal.mgts"), os.path.join(tmp, "trajectory.csv")
+        cam16 = np.zeros(16, np.float32)
+        cam16[:4] = ref["cam"]
+        with CaptureWriter(cap, CaptureHeader(w, h, cam16, "render_scene")) as wr:
+            for i, (px, ts) in enumerate(zip(ref["frames"], ref["timestamps"])):
+                wr.write_frame(px, float(ts), i)
+        fx, fy, cx, cy = (repr(float(v)) for v in ref["cam"])
+        cmd = [sys.executable, "-m", "mageslam_tpu_torch.apps.console", cap, "-o", csv,
+               "--width", str(w), "--height", str(h), "--fx", fx, "--fy", fy, "--cx", cx,
+               "--cy", cy, "--draws", PHOTOREAL_FIXTURE, "--device", device.type]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=CONSOLE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        if proc.returncode != 0:
+            faults.append(f"console exited {proc.returncode}: {summary} {proc.stderr[-2000:]}")
+            return {"rc": proc.returncode}
+        ids, ts, centers = load_trajectory_csv(csv)
+    fields = dict(kv.split("=", 1) for kv in summary.split() if "=" in kv)
+    n, tracked = int(fields["frames"]), int(fields["tracked"])
+    rmse, n_ate = ate_rmse(ts, centers, ref["timestamps"], ref["gt_c"])
+    phase("stream", f"console subprocess on an 80-frame .mgts capture: rc 0 in {wall:.1f} s "
+                    f"({summary}); {len(ids)} CSV poses, ATE {rmse:.6f} m over {n_ate} (limit "
+                    f"{ATE_LIMIT}), tracked {tracked}/{n} (limit {TRACKED_SHARE:.0%})")
+    if not (rmse < ATE_LIMIT and tracked >= TRACKED_SHARE * n):
+        faults.append(f"console: ATE {rmse} or tracked {tracked}/{n} misses the gate")
+    return {"rc": 0, "ate": rmse, "tracked": tracked, "wall_s": wall}
+
+
+def check_stream(device, card: str) -> dict:
+    """Phase 13. Returns the measured stream run's launch totals."""
+    import tempfile
+
+    from mageslam_tpu_torch import SlamSession, TrackingState
+    from mageslam_tpu_torch.io.snapshot import load_session_snapshot, save_session_snapshot
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    ref = load_npz(STREAM_FIXTURE)
+    faults, calls = [], []
+    clock = time.perf_counter()
+    frames = render_window(0, STREAM_LAST + 1)
+    bank = torch.from_numpy(np.stack(frames)).to(device)
+    ts = [i * DT for i in range(STREAM_LAST + 1)]
+    ids = list(range(STREAM_LAST + 1))
+    window = range(STREAM_FIRST, STREAM_LAST + 1)
+
+    def stream(sess, first=STREAM_FIRST, last=STREAM_LAST):
+        return sess.process_frame_stream(bank, ts, ids, start=first, stop=last + 1,
+                                         chunk=STREAM_CHUNK)
+
+    # the four entry points on the same frames: wall ms and host reads a frame
+    timed = range(STREAM_FIRST, TIMED_LAST + 1)
+    n_timed = len(timed)
+
+    def per_frame(sess):
+        out = []
+        for i in timed:
+            t0 = time.perf_counter()
+            sess.process_frame(bank[i], ts[i], i)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def pipelined(sess):
+        for i in timed:
+            sess.process_frame_pipelined(bank[i], ts[i], i)
+        sess.flush()
+
+    def realtime(sess):
+        n0 = len(sess.results)
+        for i in timed:
+            sess.process_frame_realtime(bank[i], ts[i], i)
+        sess.flush()
+        return sum(r.state == TrackingState.SKIPPED for r in sess.results[n0:])
+
+    runs = {"process_frame": per_frame,
+            "process_frame_stream": lambda s: stream(s, STREAM_FIRST, TIMED_LAST),
+            "process_frame_pipelined": pipelined, "process_frame_realtime": realtime}
+    entry = {k: [] for k in runs}
+    for rnd in range(TIMED_ROUNDS):     # interleaved, the order reversed every other round
+        for k in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+            entry[k].append(timed_entry(device, runs[k], n_timed))
+    dropped = [e["out"] for e in entry["process_frame_realtime"]]
+    per_frame_ms = [ms for e in entry["process_frame"] for ms in e["out"]]
+    numbers = {k: {"ms_a_frame": [round(e["ms_a_frame"], 3) for e in v],
+                   "median_ms_a_frame": round(statistics.median(e["ms_a_frame"] for e in v), 3),
+                   "reads_a_frame": [round(e["reads_a_frame"], 3) for e in v]}
+               for k, v in entry.items()}
+    numbers["process_frame"]["median_frame_ms"] = round(statistics.median(per_frame_ms), 3)
+    phase("stream", f"frames {STREAM_FIRST}-{TIMED_LAST}, each entry point on a fresh session "
+                    f"(own generator), {TIMED_ROUNDS} interleaved rounds in the orders "
+                    f"{list(runs)} and back: wall ms and host reads a frame (whole call, "
+                    f"synchronized, over {n_timed} frames) a round {numbers}; "
+                    f"process_frame_realtime back to back at the default depth "
+                    f"(MaxPendingKeyframes) dropped {dropped} of {n_timed} frames; {card}")
+
+    # realtime: the drop gate and paced frames
+    rsess = stream_session(device, None)
+    for i in REALTIME_PACED:
+        rsess.process_frame_realtime(bank[i], ts[i], i)
+        rsess.flush()
+    paced_ok = all(r.state == TrackingState.TRACKING for r in rsess.results)
+    lost = rsess.lost_count
+    drops = [rsess.process_frame_realtime(bank[i], ts[i], i, max_inflight=0)
+             for i in REALTIME_DROPPED]
+    drop_ok = all(r is not None and r.state == TrackingState.SKIPPED for r in drops) \
+        and rsess.lost_count == lost
+    phase("stream", f"process_frame_realtime: paced frames {REALTIME_PACED.start}-"
+                    f"{REALTIME_PACED.stop - 1} (flush after each) "
+                    f"{'all' if paced_ok else 'NOT all'} TRACKING; max_inflight=0 drops "
+                    f"{sum(r.state == TrackingState.SKIPPED for r in drops)}/{len(drops)} as "
+                    f"SKIPPED, lost count {'unchanged' if rsess.lost_count == lost else 'CHANGED'}")
+    if not (paced_ok and drop_ok):
+        faults.append("realtime: paced frames did not all track, or the drop gate failed")
+
+    # device events a frame: one chunk of the stream, traced
+    tsess = stream_session(device, None)
+    stream(tsess, STREAM_FIRST, STREAM_FIRST + STREAM_CHUNK - 1)
+    tsess = stream_session(device, None)
+    ev = profile(lambda: stream(tsess, STREAM_FIRST, STREAM_FIRST + STREAM_CHUNK - 1))
+    dev_ms = sum(_device_us(e) for e in ev) / 1e3
+    phase("profile", f"process_frame_stream, one chunk of {STREAM_CHUNK} frames "
+                     f"({STREAM_FIRST}-{STREAM_FIRST + STREAM_CHUNK - 1}, resolved): "
+                     f"{len(ev) / STREAM_CHUNK:.1f} device events and "
+                     f"{dev_ms / STREAM_CHUNK:.3f} ms of device time a frame; {card}")
+    phase("time", f"phase 13, entry points timed: {time.perf_counter() - clock:.1f} s")
+    render = start_orbit_render()
+    try:
+        # run 1: every kernel call captured, held against the JAX stream call
+        sess = stream_session(device, "s95_")
+        snap = sess.snapshot_state()
+        events = []
+        with Patched(*all_kernel_call_recorders(calls, "stream"), *stream_event_recorder(events)):
+            held_run = stream(sess)
+        held = hold_stream(held_run, ref, "s95_", window, faults, events)
+        stats = [sess.loop_det_stats[k] for k in DET_STATS]
+        if stats != ref["s95_det_stats"].tolist():
+            faults.append(f"stream loop_det_stats {dict(zip(DET_STATS, stats))} != JAX "
+                          f"{dict(zip(DET_STATS, ref['s95_det_stats'].tolist()))}")
+        phase("stream", f"process_frame_stream over {STREAM_FIRST}-{STREAM_LAST} (chunk "
+                        f"{STREAM_CHUNK}, depth {STREAM_DEPTH}, uint8 bank on the card) against "
+                        f"JAX's: keyframes at {held.get('events')}, max pose err "
+                        f"{held['pose_err']:.3g} (limit {POSE_ATOL}), max tracked diff "
+                        f"{held['count_err']} (limit {TRACKED_TOL}), masks differing "
+                        f"{held.get('mask_diffs') or 'none'}, loop_det_stats "
+                        f"{dict(zip(DET_STATS, stats))} (JAX's: "
+                        f"{'equal' if stats == ref['s95_det_stats'].tolist() else 'DIFFERENT'})")
+
+        # run 2, the measured main path: launches counted from 0, host reads
+        sess.restore_state(snap)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with HostReads() as hr:
+            measured = stream(sess)
+        totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+        stream_reads = hr.count
+        same_results(measured, held_run, "stream run 2 against run 1", faults)
+        if not all(totals.values()):
+            faults.append(f"stream window: a kernel of the path never launched: {totals}")
+        phase("stream", f"measured stream run: launches {totals}; {stream_reads / len(window):.2f} "
+                        f"host reads a frame (whole call / {len(window)} frames)")
+
+        # chunked, chunk 4, the same window (the tail frame per frame)
+        sess.restore_state(snap)
+        chunked = []
+        for base in range(STREAM_FIRST, STREAM_LAST, CHUNKED_CHUNK):
+            sl = slice(base, base + CHUNKED_CHUNK)
+            chunked += sess.process_frames_chunked(list(bank[sl]), ts[sl], ids[sl])
+        chunked += sess.flush_chunks()
+        chunked.append(sess.process_frame(bank[STREAM_LAST], ts[STREAM_LAST], STREAM_LAST))
+        chunked_err = same_results(chunked, held_run, "chunked against stream", faults)
+        phase("stream", f"process_frames_chunked (chunk {CHUNKED_CHUNK}) over the window against "
+                        f"the stream run: max pose difference {chunked_err:.3g}")
+
+        # pipelined, held against JAX's pipelined call
+        psess = stream_session(device, "p58_")
+        pevents = []
+        with Patched(*stream_event_recorder(pevents)):
+            n0 = len(psess.results)
+            for i in range(STREAM_FIRST, PIPELINED_LAST + 1):
+                psess.process_frame_pipelined(bank[i], ts[i], i)
+            psess.flush()
+        pheld = hold_stream(psess.results[n0:], ref, "p58_",
+                            range(STREAM_FIRST, PIPELINED_LAST + 1), faults, pevents)
+        phase("stream", f"process_frame_pipelined over {STREAM_FIRST}-{PIPELINED_LAST} "
+                        f"against JAX's: mapping at resolution, steps at {pheld.get('events')}, "
+                        f"max pose err {pheld['pose_err']:.3g}, tracked diff {pheld['count_err']}, masks "
+                        f"differing {pheld.get('mask_diffs') or 'none'}")
+
+        # snapshot on disk mid-window, a fresh card session continues
+        sess.restore_state(snap)
+        first_part = stream(sess, STREAM_FIRST, SNAPSHOT_LAST)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "snap.npz")
+            save_session_snapshot(path, sess)
+            fresh = SlamSession(stream_settings(), CAM, WIDTH, HEIGHT, device,
+                                draws=ReplayDraws.from_npz(STREAM_FIXTURE, device, kinds=("reloc",),
+                                                           prefix="s95_"))
+            load_session_snapshot(path, fresh)
+        fresh._chunk_pipeline_depth = STREAM_DEPTH
+        resumed = first_part + stream(fresh, SNAPSHOT_LAST + 1, STREAM_LAST)
+        snap_err = same_results(resumed, held_run, "saved, loaded and continued", faults)
+        phase("stream", f"saved to disk after frame {SNAPSHOT_LAST}, loaded into a fresh card "
+                        f"session and continued to {STREAM_LAST}: the uninterrupted run's results, "
+                        f"max pose difference {snap_err:.3g}")
+        phase("time", f"phase 13, stream runs held (the orbit's frames rendering meanwhile): "
+                      f"{time.perf_counter() - clock:.1f} s")
+
+        orbit = check_orbit(device, render, faults)
+    finally:
+        render[0].terminate()
+    phase("time", f"phase 13, orbit: {time.perf_counter() - clock:.1f} s")
+    console = check_console(device, faults)
+    phase("time", f"phase 13, console: {time.perf_counter() - clock:.1f} s")
+    hold_path_calls(calls, "the stream window")
+    if faults:
+        raise AssertionError("phase 13 (stream): " + " | ".join(faults))
+    return {"totals": totals, "entry": numbers, "dropped": dropped, "orbit": orbit,
+            "console": console, "events_a_frame": len(ev) / STREAM_CHUNK,
+            "device_ms_a_frame": dev_ms / STREAM_CHUNK}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3209,6 +3672,8 @@ def main() -> int:
     lap("phase 11 (stereo rig and cameras)")
     vi = check_vi(device, card)
     lap("phase 12 (visual-inertial run and the fossilized map)")
+    stream = check_stream(device, card)
+    lap("phase 13 (stream, chunked, pipelined and realtime entry points, orbit, console)")
 
     # the standalone kernel's top-level row: the adoption's vocabulary call
     ham_row = init["hamming"][(1024, 64)]
@@ -3228,7 +3693,8 @@ def main() -> int:
                    "distorted_undistort_pixels_frames_0_39": stereo["und_"]["totals"][kernel],
                    "distorted_keypoints_frames_0_39": stereo["kp_"]["totals"][kernel],
                    "oriented_photoreal_frames_0_29": stereo["orient_"]["totals"][kernel],
-                   "vi_frames_0_79": vi["totals"][kernel]}
+                   "vi_frames_0_79": vi["totals"][kernel],
+                   "stream_frames_31_95": stream["totals"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def new_shapes(kind: str) -> dict:

@@ -47,6 +47,8 @@ class GeneratorDraws:
     def rewind(self, position: torch.Tensor) -> None:
         self.generator.set_state(position)
 
+    seek = rewind
+
     def gumbel(self, kind: str, shape: tuple[int, ...]) -> torch.Tensor:
         if kind not in KINDS:
             raise ValueError(f"unknown draw kind {kind!r}")
@@ -109,6 +111,18 @@ class ReplayDraws:
                 raise ValueError(f"cannot rewind {k!r} forward ({n_taken} > {len(taken)})")
             self.queues[k] = taken[n_taken:] + self.queues[k]
             del taken[n_taken:]
+
+    def seek(self, position: dict[str, int]) -> None:
+        """Go to `position`, earlier or later: a later one skips the draws
+        in between (a session that loads a snapshot taken further on)."""
+        for k, n_taken in position.items():
+            skip = n_taken - len(self._taken[k])
+            if skip > len(self.queues[k]):
+                raise ValueError(f"cannot skip {skip} {k!r} draws: {len(self.queues[k])} left")
+            if skip > 0:
+                self._taken[k].extend(self.queues[k][:skip])
+                del self.queues[k][:skip]
+        self.rewind({k: min(n, len(self._taken[k])) for k, n in position.items()})
 
     def gumbel(self, kind: str, shape: tuple[int, ...]) -> torch.Tensor:
         if not self.queues.get(kind):

@@ -211,15 +211,16 @@ class BowTraining:
         self.frames = 0
         self.retrained = retrained
 
-    def add(self, sess, desc: torch.Tensor, valid: torch.Tensor) -> bool:
-        """Pool one frame's descriptors; returns whether the vocabulary was
-        retrained now."""
+    def add(self, sess, desc: torch.Tensor, valid: torch.Tensor, n_frames: int = 1) -> bool:
+        """Pool the descriptors of `n_frames` frames (a resolved chunk's
+        stacked ones on the chunk path, pipeline.py:1578-1582); returns
+        whether the vocabulary was retrained now."""
         bw = sess.settings.BagOfWordsSettings
         if self.retrained:
             return False
         if self.frames < 3 * bw.TrainingFrames:
             self.pool.append((desc.reshape(-1, desc.shape[-1]), valid.reshape(-1)))
-            self.frames += 1
+            self.frames += n_frames
         if not sess.initialized or self.frames < bw.TrainingFrames:
             return False
         pool_desc = torch.cat([d for d, _ in self.pool])

@@ -58,8 +58,13 @@ fuser/fuser.py. After the run, `fossilize_map` returns the queryable
 of interest); `get_tracking_results_for_frames` and
 `try_get_volume_of_interest` answer the same on the live session.
 
-The reference's relay-only machinery (chunk/stream cores, grouped fetches,
-deferred detections, pipeline-depth overrides) has no counterpart here.
+The throughput and realtime entry points (`process_features_pipelined`,
+`process_frame_pipelined`, `flush`, `process_frame_realtime`,
+`process_frames_chunked`, `process_frame_stream`, `flush_chunks`) and the
+deferred loop detection of the chunk path live in runtime/streaming.py
+(`StreamEntryPoints`, a mixin of this class); they run the gated step of
+runtime/frame_step.py. io/snapshot.py writes and reads the session on disk
+in the reference's format.
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ from ..geometry.se3 import Pose
 from ..interop import load_jax_snapshot, resolve_device
 from ..ops.frontend import FrameFeatures, detect_and_compute
 from ..ops.undistort import (remap_bilinear, rescale_map, scale_for_camera_configuration,
-                             undistort_image, undistorted_calibration)
+                             undistorted_calibration)
 from ..tracking.frame_state import TrackedFrame, TrackingHistory
 from ..tracking.relocalization import RELOC_HYPOTHESES
 from ..tracking.stereo_init import stereo_initialize, stereo_settings
@@ -91,13 +96,15 @@ from ..worldmap.map_state import empty_map, grow_map, refresh_membership
 from ..worldmap.operations import add_keyframe_tether
 from .draws import GeneratorDraws
 from .fossilized import FossilizedMap, volume_of_interest
+from .frame_step import prepare_image
 from .global_ba import global_ba
 from .init_step import BowTraining, InitWindow, adopt, try_initialize
-from .loop_closure import close_loop, detect_loop
+from .loop_closure import close_loop
 from .mapping_step import mapping
 from .pose_history import PoseHistory
 from .post_step import post_step
 from .reloc_step import reloc_step
+from .streaming import DEFERRED_STATS, StreamEntryPoints
 from .track_step import track_step
 
 
@@ -116,7 +123,7 @@ class FrameResult(NamedTuple):
     is_keyframe: bool
 
 
-class SlamSession:
+class SlamSession(StreamEntryPoints):
     """Monocular or stereo session (MageSlam.h:25-187): mono init or the
     stereo bootstrap, tracking, relocalization, keyframe mapping, the
     bag-of-words index, loop closure and fossilize.
@@ -184,8 +191,10 @@ class SlamSession:
         self.last_kf_slot = -1
         self.n_loops_closed = 0
         # detections run (live), those whose cluster qualified (a
-        # relocalization ran) and loops closed
-        self.loop_det_stats = dict.fromkeys(("live", "qualified", "closed"), 0)
+        # relocalization ran) and loops closed; the chunk path's deferred
+        # detections add runtime/streaming.py's DEFERRED_STATS
+        self.loop_det_stats = dict.fromkeys(("live", "qualified", "closed",
+                                             *DEFERRED_STATS), 0)
         self._grow_pending = False
         self.results: list[FrameResult] = []
         # the visual-inertial path (pipeline.py:192-200), its filter chosen
@@ -193,6 +202,7 @@ class SlamSession:
         self.fuser = (Fuser(filter_type=self.settings.FuserSettings.FilterType,
                             device=self.device)
                       if self.settings.FuserSettings.UseFuser else None)
+        self._init_streaming()
 
     @classmethod
     def from_jax_snapshot(cls, path: str, settings=None, cam=None,
@@ -231,15 +241,10 @@ class SlamSession:
         if self.fuser is not None:
             self.fuser.add_sample(sample)
 
-    def _image(self, image) -> torch.Tensor:
-        return torch.as_tensor(image).to(self.device).to(torch.float32)
-
     def process_frame(self, image, timestamp: float, frame_id: int) -> FrameResult:
         """Analyze and track one grayscale frame (H, W), uint8 or float32
         [0, 255], numpy or tensor (pipeline.py:310-329)."""
-        image = self._image(image)
-        if self._raw_cam16 is not None:
-            image, _ = undistort_image(image, self._raw_cam16)
+        image = prepare_image(image, self.device, self._raw_cam16)
         feats = detect_and_compute(image, self.cam16,
                                    self.fes if self.initialized else self._fes_boot, self.N)
         return self.process_features(feats, timestamp, frame_id)
@@ -278,7 +283,7 @@ class SlamSession:
         overlap, an initialized session tracks frame 0 alone, an
         uninitialized one waits. Both frames are analyzed with the
         session's feature settings and are not undistorted densely."""
-        img0, img1 = self._image(image0), self._image(image1)
+        img0, img1 = prepare_image(image0, self.device), prepare_image(image1, self.device)
         rig = self._pose(frame0_to_frame1)
         cam1_16 = self.cam16
         if camera1 is not None:
@@ -470,44 +475,40 @@ class SlamSession:
             return
         self.frames_since_keyframe = 0
         self.last_kf_slot = ki
+        self._kf_bound = n_kf
         self._post_keyframe(frame, ki, n_kf)
         # the counts are the mapping step's own read, taken before local BA
         # and the culls: where those remove something, growth is armed a
         # little earlier than the reference's post-mapping counts would
         self._maybe_grow_banks(n_kf, n_mp)
 
-    def _post_keyframe(self, frame: TrackedFrame, ki: int, n_kf_bound: int) -> bool:
-        """pipeline.py:2379-2426 and 2448-2473 (defer=False): the
-        keyframe's bag-of-words add, then loop detection and, on a
-        detection, the closure. `n_kf_bound` bounds the map's keyframe count
-        from above. Returns whether a loop closed."""
+    def _post_keyframe(self, frame: TrackedFrame, ki: int, n_kf_bound: int | None,
+                       defer: bool = False) -> bool:
+        """pipeline.py:2379-2426 and 2448-2473: the keyframe's bag-of-words
+        add, then loop detection. `n_kf_bound` bounds the map's keyframe
+        count from above (None: unknown). defer=False reads the detection
+        and, on a hit, closes the loop now; defer=True queues it for the
+        chunk path's resolution (runtime/streaming.py). Returns whether a
+        loop closed."""
         lc = self.settings.LoopClosureSettings
         # the slot guard: the keyframe still occupies the slot mapping gave it
         slot_ok = self.map.kf_frame_id[ki] == frame.frame_id
         bow = bow_add_keyframe(self.bow, torch.where(slot_ok, ki, -1), frame.desc,
                                frame.kp_valid)
         self.bow = bow._replace(kf_has=bow.kf_has & self.map.kf_valid)
-        if not lc.EnableLoopClosure or n_kf_bound < lc.MinKeyframe:
+        if not lc.EnableLoopClosure:
             return False
-        rs = self.settings.RelocalizationSettings
-        C = self.settings.MappingSettings.MaxRelocQueryResults
-        det, live, qualified = detect_loop(
-            self.map, self.bow, frame, ki,
-            lambda: self.draws.gumbel("reloc", (C, RELOC_HYPOTHESES, self.N)),
-            covis_loop_threshold=self.settings.CovisibilitySettings.CovisLoopThreshold,
-            covis_cluster_threshold=self.settings.CovisibilitySettings.CovisMinThreshold,
-            min_cluster_size=lc.MinClusterSize, min_keyframes=lc.MinKeyframe,
-            max_candidates=C,
-            reloc_kwargs=dict(min_brute_force=rs.MinBruteForceCorrespondences,
-                              min_radius_matches=rs.MinRadiusMatchCorrespondences,
-                              search_radius=lc.MatchSearchRadius))
-        self.loop_det_stats["live"] += int(live)
-        if not qualified:
+        if defer:
+            self._defer_detection(frame, ki, slot_ok, n_kf_bound)
             return False
-        self.loop_det_stats["qualified"] += 1
-        if not bool(det.detected & slot_ok):
+        if n_kf_bound is not None and n_kf_bound < lc.MinKeyframe:
             return False
-        return self._apply_loop_closure(det, frame, ki)
+        det, qualified = self._detect(frame, ki, slot_ok)
+        if not qualified or not bool(det.detected):
+            return False
+        self._apply_loop_closure(det, frame, ki)
+        self.loop_det_stats["closed"] += 1
+        return True
 
     def _apply_loop_closure(self, det, frame: TrackedFrame, ki: int) -> bool:
         """pipeline.py:2475-2504: similarity correction, merge and essential
@@ -523,7 +524,6 @@ class SlamSession:
                                 max_outlier_error=bas.MaxOutlierError, bas=bas)
         self.map = refresh_membership(self.map)
         self.n_loops_closed += 1
-        self.loop_det_stats["closed"] += 1
         return True
 
     def estimate_pose_covariance(self, frame: TrackedFrame) -> tuple[np.ndarray, bool]:
@@ -589,7 +589,9 @@ class SlamSession:
         As in the reference, the fuser's state (the visual-inertial path)
         is not part of it.
         Every state update makes new tensors, so the snapshot holds
-        references, not copies. `restore_state` rewinds to it."""
+        references, not copies. `restore_state` rewinds to it. The queues of
+        the throughput entry points are drained first."""
+        self._drain()
         snap = {a: getattr(self, a) for a in self._SNAP_ATTRS}
         snap["loop_det_stats"] = dict(self.loop_det_stats)
         bt, win = self.bow_training, self.init_window
@@ -602,7 +604,9 @@ class SlamSession:
 
     def restore_state(self, snap: dict) -> None:
         """Rewind to a `snapshot_state` point of this session; the results
-        recorded since are dropped. Frames run again give the same results."""
+        recorded since are dropped, and the queues cleared. Frames run again
+        give the same results."""
+        self._clear_queues()
         for a in self._SNAP_ATTRS:
             setattr(self, a, snap[a])
         self.loop_det_stats = dict(snap["loop_det_stats"])
@@ -627,13 +631,17 @@ class SlamSession:
         if n_kf > int(0.75 * K) or n_mp > int(0.85 * P):
             self._grow_pending = True
 
-    def _service_bank_growth(self) -> None:
-        """Serve an armed growth before the next frame (pipeline.py:1456-
-        1480): the map banks and the index's keyframe rows."""
+    def _service_bank_growth(self) -> list[FrameResult]:
+        """Serve an armed growth at a safe point (pipeline.py:1456-1480):
+        drain the queues, then grow the map banks and the index's keyframe
+        rows. Returns the chunk results the drain resolved."""
+        drained = self._drain()
         b = self.settings.Budgets
         self.map = grow_map(self.map, b.MaxKeyframes, b.MaxMapPoints)
         self.bow = grow_index(self.bow, b.MaxKeyframes)
+        self._dev_counters = None
         self._grow_pending = False
+        return drained
 
     def _tracking_failed(self, frame_id) -> FrameResult:
         """mageslam_tpu/runtime/pipeline.py:1822-1833 `_tracking_failed`."""

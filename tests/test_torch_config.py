@@ -119,3 +119,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert Fuser(device="cpu").state.P.device.type == "cpu"
+    # the console and the stream-path orbit too
+    from mageslam_tpu_torch.apps import console
+    from mageslam_tpu_torch.apps.loop_eval import run_orbit_eval
+
+    for make in (lambda: console.main(["missing.mgts"]), lambda: run_orbit_eval(1, frames=[])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -7,7 +7,9 @@ relocalization, loop detection and closure, the photoreal run's first
 frames with a snapshot restored against the stored JAX outputs, and the
 visual-inertial path: the fuser's float32 products, its three filters
 replayed on the JAX run's inputs, the VI session's first 26 frames and the
-fossilized map's queries.
+fossilized map's queries; and the throughput and realtime entry points:
+the stream and pipelined calls against JAX's, the realtime gate, a disk
+snapshot continued on the card.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -667,3 +669,96 @@ def test_vi_run_on_the_card_matches_jax(cuda_device):
     held = chip_smoke.check_vi_run(run, rec, maps, ref, faults)
     assert not faults, faults
     assert held["over"] == [] or [f for f, _ in held["over"]] == [71]
+
+
+# ------------------------------------------------- stream entry points ----
+
+def stream_bank(device, last: int):
+    frames = chip_smoke.render_window(0, last + 1)
+    return (torch.from_numpy(np.stack(frames)).to(device),
+            [i * chip_smoke.DT for i in range(last + 1)], list(range(last + 1)))
+
+
+def test_stream_on_the_card_matches_jax(cuda_device):
+    """`process_frame_stream` over bench frames 31-71 on the card (chunk 8,
+    depth 4, a uint8 bank on the card) against the JAX stream call: states,
+    keyframes, poses (1e-3), tracked counts (3), the masks after each
+    mapping step and `loop_det_stats`, with every kernel launched."""
+    ref = chip_smoke.load_npz(chip_smoke.STREAM_FIXTURE)
+    bank, ts, ids = stream_bank(cuda_device, 71)
+    sess = chip_smoke.stream_session(cuda_device, "s71_")
+    events, faults = [], []
+    chip_smoke.reset_launch_counts()
+    with chip_smoke.Patched(*chip_smoke.stream_event_recorder(events)):
+        res = sess.process_frame_stream(bank, ts, ids, start=31, stop=72, chunk=8)
+    assert all(chip_smoke.launch_counts())
+    chip_smoke.hold_stream(res, ref, "s71_", range(31, 72), faults, events)
+    assert not faults, faults
+    assert [sess.loop_det_stats[k] for k in chip_smoke.DET_STATS] == \
+        ref["s71_det_stats"].tolist()
+
+
+def test_pipelined_on_the_card_matches_jax(cuda_device):
+    ref = chip_smoke.load_npz(chip_smoke.STREAM_FIXTURE)
+    bank, ts, ids = stream_bank(cuda_device, 58)
+    sess = chip_smoke.stream_session(cuda_device, "p58_")
+    events, faults = [], []
+    with chip_smoke.Patched(*chip_smoke.stream_event_recorder(events)):
+        for i in range(31, 59):
+            sess.process_frame_pipelined(bank[i], ts[i], i)
+        sess.flush()
+    chip_smoke.hold_stream(sess.results, ref, "p58_", range(31, 59), faults, events)
+    assert not faults, faults
+
+
+def test_realtime_gate_on_the_card(cuda_device):
+    """Paced frames all track; with max_inflight=0 every frame drops as
+    SKIPPED and the lost count stays; dispatches resolve once their
+    events have passed."""
+    from mageslam_tpu_torch import TrackingState
+
+    bank, ts, _ = stream_bank(cuda_device, 43)
+    sess = chip_smoke.stream_session(cuda_device, None)
+    for i in range(31, 39):
+        sess.process_frame_realtime(bank[i], ts[i], i)
+        sess.flush()
+    assert all(r.state == TrackingState.TRACKING for r in sess.results)
+    lost = sess.lost_count
+    drops = [sess.process_frame_realtime(bank[i], ts[i], i, max_inflight=0)
+             for i in range(39, 43)]
+    assert all(r.state == TrackingState.SKIPPED for r in drops) and sess.lost_count == lost
+    sess.process_frame_realtime(bank[43], ts[43], 43)
+    torch.cuda.synchronize()
+    assert all(event.query() for *_, event in sess._pending)
+    sess.flush()
+    assert sess.results[-1].state == TrackingState.TRACKING
+
+
+def test_disk_snapshot_on_the_card_continues_the_run(cuda_device, tmp_path):
+    """Chunks over 31-46 on the card, the session saved to disk, loaded into
+    a fresh card session and continued over 47-62: the uninterrupted run's
+    results; the file loads on the CPU leaf for leaf."""
+    from mageslam_tpu_torch import interop
+    from mageslam_tpu_torch.io.snapshot import load_session_snapshot, save_session_snapshot
+
+    bank, ts, ids = stream_bank(cuda_device, 62)
+    whole = chip_smoke.stream_session(cuda_device, None)
+    want = whole.process_frame_stream(bank, ts, ids, start=31, stop=63, chunk=8)
+    sess = chip_smoke.stream_session(cuda_device, None)
+    got = sess.process_frame_stream(bank, ts, ids, start=31, stop=47, chunk=8)
+    path = str(tmp_path / "snap.npz")
+    save_session_snapshot(path, sess)
+    fresh = SlamSession(chip_smoke.stream_settings(), chip_smoke.CAM, chip_smoke.WIDTH,
+                        chip_smoke.HEIGHT, cuda_device)
+    load_session_snapshot(path, fresh)
+    fresh._chunk_pipeline_depth = chip_smoke.STREAM_DEPTH
+    got += fresh.process_frame_stream(bank, ts, ids, start=47, stop=63, chunk=8)
+    faults = []
+    chip_smoke.same_results(got, want, "continued from disk", faults)
+    assert not faults, faults
+    cpu = SlamSession(chip_smoke.stream_settings(), chip_smoke.CAM, chip_smoke.WIDTH,
+                      chip_smoke.HEIGHT, "cpu")
+    load_session_snapshot(path, cpu, restore_draws=False)   # a card generator's state
+    for a, b in ((sess.map, cpu.map), (sess.bow, cpu.bow)):     # the state saved
+        for name, x in interop.to_numpy(a).items():
+            assert np.array_equal(x, interop.to_numpy(b)[name], equal_nan=True), name

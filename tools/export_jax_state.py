@@ -117,7 +117,25 @@ One more holds the reference of the visual-inertial path:
   (its pose history `pr_ph*` beside the photoreal fixture's `final_map*`,
   its live and fossilized answers `pr_*`) (~300 s).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|all]
+One more holds the reference of the session's throughput entry points:
+
+- `stream`: a JAX session at bench.py's settings (golden, MinKeyframe 3)
+  over frames 0-30 per frame (as `run_to_snapshot`), its snapshot as the
+  file's own keys, and which of its leaves differ from
+  `torch_port_bench640_f30.npz`'s (`f30_differs`). From that state, in the
+  same session, rewound with `snapshot_state` / `restore_state` between
+  them: `process_frame_stream` over 31-95 (`s95_*`) and over 31-71
+  (`s71_*`), chunk 8 at `_chunk_pipeline_depth` 4, and
+  `process_frame_pipelined` over 31-58 (`p58_*`). Each call's per-frame
+  results (`ref_*`), the map's masks right after each mapping step
+  (`ev{j}_*`), its `loop_det_stats` (`det_stats`, in `DET_STATS` order),
+  the index at the end (`bow{i}`) and each detection's relocalization
+  draws (`reloc{j}_draws`, re-detections included). And
+  tests/test_stream_loop_closure.py's deferred-resolution scene
+  (`dr_*`): the drifted map, keyframes 4 and 5 with their detections'
+  draws, the re-detection's gate and what the JAX session counted (~6 min).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -129,7 +147,8 @@ tests/data/torch_port_reloc.npz (reloc),
 tests/data/torch_port_loop.npz (loop),
 tests/data/torch_port_stereo.npz (stereo) and
 tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
-torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi).
+torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi),
+tests/data/torch_port_stream.npz (stream).
 """
 
 from __future__ import annotations
@@ -1621,10 +1640,239 @@ def main_vi(out_path: str = VI_OUT) -> None:
                       f"{arrays[f'rp_{nm}_metric_scale'][-1]}" for nm in VI_REPLAYS))
 
 
+STREAM_OUT = os.path.join(REPO, "tests", "data", "torch_port_stream.npz")
+STREAM_CALLS = (("s95", "stream", 95), ("s71", "stream", 71), ("p58", "pipelined", 58))
+STREAM_CHUNK, STREAM_DEPTH = 8, 4
+DET_STATS = ("deferred", "resolved", "stale_slot", "closed", "requeued", "same_loop_dropped")
+
+
+def bench_settings():
+    """bench.py's settings: golden with LoopClosureSettings.MinKeyframe 3."""
+    import dataclasses
+
+    from mageslam_tpu.config import golden_path_settings
+
+    s = golden_path_settings()
+    return dataclasses.replace(s, LoopClosureSettings=dataclasses.replace(
+        s.LoopClosureSettings, MinKeyframe=3))
+
+
+class StreamRelocRecorder(RelocRecorder):
+    """`RelocRecorder` that also records the re-detections the deferred
+    resolution runs (`_get_kf_redetect_core`)."""
+
+    def __init__(self, sess):
+        super().__init__(sess)
+        self._real_redetect = sess._get_kf_redetect_core
+        sess._get_kf_redetect_core = self._get_redetect
+
+    def close(self) -> None:
+        super().close()
+        del self.sess._get_kf_redetect_core
+
+    def _get_redetect(self):
+        import jax
+
+        core = self._real_redetect()
+
+        def wrapped(map_state, bow, frame, ki, fid, key):
+            out = core(map_state, bow, frame, ki, fid, key)
+            live, qualifies, size = detection_gate(self.sess.settings, map_state, bow,
+                                                   frame, int(ki))
+            self.detections.append((int(fid), int(ki), live, qualifies, size,
+                                    bool(out[0].detected)))
+            if qualifies:
+                self._record(jax.random.split(key)[1], frame, "redetect")
+            return out
+
+        return wrapped
+
+
+def record_mapping_events(sess) -> list:
+    """Records the map's masks right after every mapping step of `sess`, the
+    host one (`_mapping_core`) and the one the stream cores embed
+    (`_mapping_fn`, through a debug callback: a stream core built once keeps
+    it), into a new list it returns: (frame id, slot, masks) tuples."""
+    import jax
+
+    sess._event_sink = events = []
+    if getattr(sess, "_events_recorded", False):
+        return events
+    sess._events_recorded = True
+    real_core, real_fn = sess._mapping_core, sess._mapping_fn
+
+    def host_core(map_state, pose_history, frame, map_scale):
+        out = real_core(map_state, pose_history, frame, map_scale)
+        sess._event_sink.append((int(frame.frame_id), int(out[2]), {
+            n: np.asarray(getattr(out[0], n)) for n in EVENT_MASKS}))
+        return out
+
+    def keep(fid, ki, *masks):
+        sess._event_sink.append((int(fid), int(ki),
+                                 dict(zip(EVENT_MASKS, map(np.asarray, masks)))))
+
+    def scan_fn(map_state, pose_history, frame, map_scale):
+        out = real_fn(map_state, pose_history, frame, map_scale)
+        jax.debug.callback(keep, frame.frame_id, out[2],
+                           *[getattr(out[0], n) for n in EVENT_MASKS])
+        return out
+
+    sess._mapping_core, sess._mapping_fn = host_core, scan_fn
+    return events
+
+
+def stream_call(sess, bank, kind: str, last: int) -> dict:
+    """One call of the stream or pipelined entry point over frames
+    SNAP_FRAME+1..last and what it recorded."""
+    import jax
+
+    n0 = len(sess.results)
+    events = record_mapping_events(sess)
+    rrec = StreamRelocRecorder(sess)
+    try:
+        T = bank.shape[0]
+        ts, ids = [i * DT for i in range(T)], list(range(T))
+        if kind == "stream":
+            sess.process_frame_stream(bank, ts, ids, start=SNAP_FRAME + 1, stop=last + 1,
+                                      chunk=STREAM_CHUNK)
+            sess.flush_chunks()
+        else:
+            for i in range(SNAP_FRAME + 1, last + 1):
+                sess.process_frame_pipelined(bank[i], i * DT, i)
+            sess.flush()
+        jax.effects_barrier()
+    finally:
+        rrec.close()
+    arrays = {k: v[n0:] for k, v in session_refs(sess).items()}
+    if arrays["ref_frame_id"].tolist() != list(range(SNAP_FRAME + 1, last + 1)):
+        raise RuntimeError(f"{kind} results out of order: {arrays['ref_frame_id'].tolist()}")
+    events.sort(key=lambda e: e[0])
+    arrays["ev_frame_id"] = np.asarray([e[0] for e in events], np.int32)
+    arrays["ev_ki"] = np.asarray([e[1] for e in events], np.int32)
+    for j, (_, _, masks) in enumerate(events):
+        arrays.update({f"ev{j}_{n}": v for n, v in masks.items()})
+    arrays["det_stats"] = np.asarray([sess.loop_det_stats[k] for k in DET_STATS], np.int32)
+    arrays["n_loops_closed"] = np.int32(sess.n_loops_closed)
+    arrays.update(_flatten("bow", sess.bow))
+    arrays.update(rrec.result())
+    return arrays
+
+
+def deferred_resolution_arrays() -> dict:
+    """tests/test_stream_loop_closure.py::test_deferred_resolution_guards_and_requeue
+    as the port's twin needs it: the scene, both keyframes with the draws of
+    their detections, and what the JAX session's resolution did."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    sys.path[:0] = [os.path.join(REPO, "tests")]
+    from test_loop_closure import CAM as LCAM
+    from test_loop_closure import K_CAP, N_CAP, P_CAP, build_drifted_map
+
+    from mageslam_tpu.config import Budgets, MageSlamSettings
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.runtime.loop_closure import detect_loop
+    from mageslam_tpu.tracking.frame_state import TrackedFrame
+
+    m, bow, frames, _, _, n_pts = build_drifted_map(np.random.RandomState(0))
+    s = MageSlamSettings()
+    s = dataclasses.replace(
+        s, LoopClosureSettings=dataclasses.replace(
+            s.LoopClosureSettings, EnableLoopClosure=True, MinKeyframe=5, MinClusterSize=2),
+        Budgets=Budgets(MaxFeatures=N_CAP, MaxKeyframes=K_CAP, MaxMapPoints=P_CAP))
+    sess = SlamSession(s, cam=LCAM, image_width=320, image_height=180)
+    sess.map, sess.bow, sess.initialized = m, bow, True
+    sess._global_ba = lambda *a, **k: 0.0
+
+    def tracked(i, fid):
+        xy, d, valid, assoc, pose = frames[i]
+        return TrackedFrame(pose=pose, cam=LCAM, kp_xy=xy,
+                            kp_octave=jnp.zeros((N_CAP,), jnp.int32), desc=d,
+                            kp_valid=valid, assoc=assoc, timestamp=np.float32(0.1 * i),
+                            frame_id=np.int32(fid))
+
+    kw = dict(min_keyframes=5, min_cluster_size=2)
+    frame5, frame4 = tracked(5, 12), tracked(4, 11)
+    det5 = detect_loop(m, bow, frame5, jnp.int32(5), jax.random.PRNGKey(3), **kw)
+    det4 = detect_loop(m, bow, frame4, jnp.int32(4), jax.random.PRNGKey(4), **kw)
+    det4_distinct = det4._replace(
+        cluster_mask=jnp.zeros_like(det4.cluster_mask).at[9].set(True))
+    rrec = StreamRelocRecorder(sess)
+    try:
+        sess._pending_loop_dets = [(det5, frame5, 5, 999), (det5, frame5, 5, 12),
+                                   (det4, frame4, 4, 11), (det4_distinct, frame4, 4, 11)]
+        sess._resolve_loop_dets()
+        requeued = [(int(k), int(f), bool(d.detected)) for d, _, k, f in sess._pending_loop_dets]
+        sess._resolve_loop_dets()
+    finally:
+        rrec.close()
+    arrays = {**_flatten("dr_map", m), **_flatten("dr_bow", bow),
+              **_flatten("dr_frame5", frame5), **_flatten("dr_frame4", frame4)}
+    arrays["dr_det5_draws"] = reloc_draws(jax.random.PRNGKey(3), 4, N_CAP)
+    arrays["dr_det4_draws"] = reloc_draws(jax.random.PRNGKey(4), 4, N_CAP)
+    for name, det in (("det5", det5), ("det4", det4)):
+        arrays[f"dr_{name}_detected"] = np.asarray(det.detected)
+        arrays[f"dr_{name}_cluster_mask"] = np.asarray(det.cluster_mask)
+    arrays["dr_requeued"] = np.asarray(requeued, np.int32).reshape(-1, 3)
+    arrays["dr_det_stats"] = np.asarray([sess.loop_det_stats[k] for k in DET_STATS], np.int32)
+    arrays["dr_n_loops_closed"] = np.int32(sess.n_loops_closed)
+    arrays["dr_post_kf_assoc"] = np.asarray(sess.map.kf_assoc)
+    arrays["dr_n_pts"] = np.int32(n_pts)
+    arrays.update({f"dr_{k}": v for k, v in rrec.result().items()})
+    return arrays
+
+
+def main_stream(out_path: str = STREAM_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    from mageslam_tpu.runtime import SlamSession
+
+    last = max(c[2] for c in STREAM_CALLS)
+    frames = bench_frames(last + 1)
+    sess = SlamSession(bench_settings(), cam=jnp.asarray(CAM, jnp.float32),
+                       image_width=640, image_height=480)
+    for i in range(SNAP_FRAME + 1):
+        sess.process_frame(frames[i], i * DT, i)
+    arrays = _snapshot_arrays(sess)
+    with np.load(DEFAULT_OUT) as z:
+        differs = [k for k in arrays if k != "meta_json" and (
+            k not in z.files or z[k].shape != arrays[k].shape
+            or not np.array_equal(z[k], arrays[k]))]
+        meta_same = bytes(z["meta_json"]) == bytes(arrays["meta_json"])
+    arrays["f30_differs"] = np.bytes_(" ".join(differs + ([] if meta_same else ["meta_json"])))
+    arrays["ref_frames_until"] = np.int32(SNAP_FRAME)
+    sess._chunk_pipeline_depth = STREAM_DEPTH
+    bank = jnp.asarray(np.stack(frames))
+    snap = sess.snapshot_state()
+    summary = []
+    for prefix, kind, stop in STREAM_CALLS:
+        sess.restore_state(snap)
+        sess.loop_det_stats = dict.fromkeys(DET_STATS, 0)
+        sess.n_loops_closed = 0
+        call = stream_call(sess, bank, kind, stop)
+        arrays.update(_prefixed(prefix + "_", call))
+        summary.append(f"{prefix}: keyframes {call['ref_frame_id'][call['ref_is_kf']].tolist()}, "
+                       f"states {sorted(set(call['ref_state'].tolist()))}, events "
+                       f"{call['ev_frame_id'].tolist()} in slots {call['ev_ki'].tolist()}, "
+                       f"det_stats {call['det_stats'].tolist()}, "
+                       f"{int(call['reloc_n'])} relocalizations")
+    arrays.update(deferred_resolution_arrays())
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes; frame-30 leaves that "
+          f"differ from {os.path.basename(DEFAULT_OUT)}: {differs or 'none'}"
+          f"{'' if meta_same else ' and meta_json'}; " + "; ".join(summary)
+          + f"; deferred scene det_stats {arrays['dr_det_stats'].tolist()}")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "stereo", "cameras", "vi", "all"):
+                     "stereo", "cameras", "vi", "stream", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -1646,3 +1894,5 @@ if __name__ == "__main__":
         main_cameras()
     if which in ("vi", "all"):
         main_vi()
+    if which in ("stream", "all"):
+        main_stream()
