@@ -20,11 +20,23 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    - the fused radius-match kernel (`csrc/radius_match.cu`) at S in {1, 3}
      stages and (Q, T) up to (2048, 512) and (700, 3000), the mapping
      step's (512, 512) among them, on low-entropy descriptors (ties at best
-     and second), rows without candidates and points exactly on the radius;
-     held exactly against the plain version and timed on the inputs the
-     tracking path gives it on frame 31 (2 calls) and on those the first
-     keyframe event gives it (6 calls: the loop-closure match and the five
-     re-association matches); no single PyTorch call computes it;
+     and second), rows without candidates and points exactly on the radius,
+     with its dedup by target over the whole call and in groups of rows,
+     and on DEDUP_CASES (tied best claims, claims past the dedup's Q + 2
+     table, relocalization's groups); held exactly against the plain
+     version and timed on the inputs the tracking path gives it on frame 31
+     (2 calls) and on those the first keyframe event gives it (6 calls: the
+     loop-closure match and the five re-association matches), beside the
+     composite of the TPU path's structure (the standalone Hamming kernel's
+     (Q, T) matrix, then the eager masked match and the eager dedup; no
+     single PyTorch call computes it);
+   - the bag-of-words kernels (`csrc/bow_words.cu`): word assignment at
+     the path's row counts and the tile's edges, and 12 chained k-medoid
+     iterations at the pools' sizes, with ties, an empty word and no valid
+     row, exact; timed on the path's own calls in phases 7-9 beside the
+     composites they replace (hamming.cu or `torch._int_mm` + argmin; the
+     hamming.cu matrix + the eager k-medoid epilogue), and a one-element
+     `add_` timed as the least launch there is;
    - the fused two-way match kernel (`csrc/two_way_match.cu`, its scan on
      the same tensor-core tile) at B in {1, 5} and (N, M) up to (512, 512)
      and (440, 700), and mono init's (440, 440) at B = 1, on low-entropy
@@ -45,9 +57,10 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    flag, pose R and t within 1e-3, tracked count within 3. In that run the
    fused kernel must launch exactly twice a frame (cascade, track-local-map),
    plus the mapping step's launches on the window's one keyframe (its last
-   frame), and the standalone Hamming kernel once a mapped keyframe (its
-   bag-of-words add). The index after frame 54 must equal the JAX
-   session's (tests/data/torch_port_bench640_bow.npz). Then torch.profiler
+   frame), and the word-assignment kernel once a mapped keyframe (its
+   bag-of-words add); the standalone Hamming kernel never. The index after
+   frame 54 must equal the JAX session's
+   (tests/data/torch_port_bench640_bow.npz). Then torch.profiler
    traces 8 frames for the device events and device time per frame.
 5. Mapping event: the first keyframe's mapping step (runtime/mapping_step.py)
    on the card from the committed JAX state just before it
@@ -65,8 +78,8 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    differing mask entries are reported, not hidden. Per frame the launch
    counts must be 2 fused radius-match launches without a keyframe, and on
    a keyframe 8 radius-match (2 tracking, 1 loop-closure match, 5
-   re-association), 1 two-way match and 1 standalone Hamming launch (the
-   keyframe's bag-of-words add). The index after each event must equal the
+   re-association), 1 two-way match and 1 word assignment (the keyframe's
+   bag-of-words add). The index after each event must equal the
    JAX session's.
 7. From frame 0: `SlamSession(golden_path_settings(), cam, 640, 480)` on the
    card with no snapshot runs frames 0-54 through `process_frame`: mono init
@@ -83,9 +96,9 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    init fixture has frames 0-30, the f30 fixture's ref_* 31-54). Launches
    are asserted for each frame class (anchor, accumulate, attempt,
    adoption, retrain, tracked, keyframe). Every two-way call of init and
-   every Hamming call of the index is held exactly against its plain
-   version, and each Hamming shape of the path and the init pair match are
-   timed. An attempt, the adoption and the retrain are timed (wall) and
+   every bag-of-words call of the index is held exactly against its plain
+   version, and each bag-of-words kernel at each row count of the path and
+   the init pair match are timed. An attempt, the adoption and the retrain are timed (wall) and
    traced (device events, device ms). Then a session with its own
    generator (no replay) must initialise within the init window and track
    every frame to 54; its adoption frame and pose are reported, not
@@ -112,9 +125,10 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    reads and launches, and its device events and device ms: each
    detection's frame runs again, traced, from the session's
    `snapshot_state` taken just before it (`restore_state`), and whether
-   that second run is bit for bit the first is reported. Every kernel call inside detection is held exactly against its
-   plain version; the query's 512x64 Hamming call, the B = 4 two-way
-   match and the stacked (2048, 512) rematch are timed and bounded.
+   that second run is bit for bit the first is reported. Every kernel call
+   inside detection is held exactly against its plain version; the
+   query's 512-row word assignment, the B = 4 two-way match and the
+   stacked (2048, 512) rematch are timed and bounded.
 9. Relocalization: tests/test_bow_reloc.py's scene from the JAX state
    after frame 29 (tests/data/torch_port_reloc.npz): five garbage frames,
    then the view of frame 29 again; states, poses and tracked counts held
@@ -145,7 +159,7 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      keyframe flags, unscaled poses (1e-3), tracked counts (3) and masks
      after each event as JAX's, the tether bank exact, the rig transform
      within 1e-3; launches asserted by frame class (the bootstrap: the pair
-     match and the adoption's 15 Hamming launches); each frame's and event's
+     match and the adoption's 3 + 12 bag-of-words launches); each frame's and event's
      wall time, each event's device events and device ms (its frame run
      again from the snapshot before it, traced);
    - the mixed-FOV rig through `process_stereo_frames` (24 pairs rendered by
@@ -164,7 +178,7 @@ Phases, each reported on its own line; any failure ends the run non-zero:
    tests/data/torch_port_vi.npz (the JAX package's apps/vi_eval.py run on
    the photoreal frames, `tools/export_jax_state.py vi`), JAX's draws
    replayed, the IMU stream (`synthesize_imu`) held to JAX's by SHA-256:
-   - `run_vi_eval(80)` with every radius-match, two-way and Hamming call
+   - `run_vi_eval(80)` with every radius-match, two-way and bag-of-words call
      captured and the host reads of each frame counted by fuser mode: its
      transitions JAX's, tests/test_vi_e2e.py's gates (TRACKING reached
      after SCALE_INIT, metric scale within 35 % of the trajectory's truth,
@@ -278,12 +292,21 @@ PATH_SHAPES = ((1024, 512), (2048, 512))   # guided cascade, track-local-map
 BANK_SHAPE = (8192, 512)   # the full point bank against a frame's feature slots
 BOW_SHAPE = (440, 64)      # a frame's features against a vocabulary level's words
 BOW_SHAPES = ((1024, 64), (8192, 64))   # the adoption's pool; a bank-size pool
+# bow_words.cu's rows: a keyframe's slots, the adoption's pool, the
+# retrain's pool (15 x 512), every keyframe's slots at the retrain (48 x 512)
+BOW_ASSIGN_ROWS = (512, 1024, 7680, 24576)
+# the bag-of-words kinds of a recorded call: (kernel wrapper, plain version)
+BOW_KERNELS = {"bow_assign": ("assign", "assign_plain"),
+               "bow_vocab_step": ("vocab_step", "vocab_step_plain")}
 HAMMING_TIMED = PATH_SHAPES + (BANK_SHAPE,) + BOW_SHAPES
 RADIUS_SHAPES = ((1, 1), (129, 257), (512, 512), (1024, 512), (2048, 512), (700, 3000))
 # (stages, Q, T) of the radius matches of a tracked frame and of a keyframe event
 RADIUS_CALLS_TRACKED = ((3, 1024, 512), (1, 2048, 512))
 RADIUS_CALLS_KEYFRAME = ((1, 2048, 512),) + 5 * ((1, 512, 512),)
 RADIUS_STAGES = (1, 3)
+# (Q, T, group_rows) of the dedup's edge cases: tied best claims, claims
+# past the Q + 2 table, relocalization's groups, a stacked rematch's shape
+DEDUP_CASES = ((40, 30, None), (20, 300, None), (64, 512, 16), (2048, 512, 512))
 TWO_WAY_SHAPES = ((1, 1), (129, 257), (512, 512), (440, 700))
 TWO_WAY_BATCHES = (1, 5)
 TWO_WAY_MIN_DIFFS = (1, 8)
@@ -299,26 +322,29 @@ MAP_POSE_ATOL = 1e-4      # kf_pose after a mapping event, against the JAX map
 MAP_POINT_ATOL = 2e-3     # mp_pos after a mapping event
 MAP_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
 MAP_REPEATS = 5
-# kernel launches of one frame: (radius_match, two_way_match, hamming)
-LAUNCHES_TRACKED = (2, 0, 0)
-LAUNCHES_KEYFRAME = (8, 1, 1)      # + the mapping step's and the index add's
-LAUNCHES_MAPPING_STEP = (6, 1, 0)  # the mapping step alone (phase 5)
+# the kernels whose launches are counted, in the order of every launch tuple
+KERNELS = ("radius_match", "two_way_match", "hamming_matrix", "bow_assign", "bow_vocab_step")
+# kernel launches of one frame, by KERNELS; the standalone Hamming kernel
+# has no call on the path (bag-of-words goes through bow_words.cu)
+LAUNCHES_TRACKED = (2, 0, 0, 0, 0)
+LAUNCHES_KEYFRAME = (8, 1, 0, 1, 0)      # + the mapping step's and the index add's
+LAUNCHES_MAPPING_STEP = (6, 1, 0, 0, 0)  # the mapping step alone (phase 5)
 # from frame 0, by frame class; parts that add up where a frame is several
-LAUNCHES_ANCHOR = (0, 0, 0)
-LAUNCHES_ACCUMULATE = (0, 1, 0)    # the anchor's covisibility counter
-LAUNCHES_PAIR = (0, 1, 0)          # try_initialize_pair's match (an attempt)
-LAUNCHES_THIRD = (0, 1, 0)         # validate_third_frame's match
-LAUNCHES_ADOPTION = (0, 0, 15)     # 12 k-medoid iterations, idf, 2 keyframe adds
-LAUNCHES_RETRAIN = (0, 0, 14)      # 12 iterations, idf, all keyframes' histograms
+LAUNCHES_ANCHOR = (0, 0, 0, 0, 0)
+LAUNCHES_ACCUMULATE = (0, 1, 0, 0, 0)    # the anchor's covisibility counter
+LAUNCHES_PAIR = (0, 1, 0, 0, 0)          # try_initialize_pair's match (an attempt)
+LAUNCHES_THIRD = (0, 1, 0, 0, 0)         # validate_third_frame's match
+LAUNCHES_ADOPTION = (0, 0, 0, 3, 12)     # 12 k-medoid iterations; idf, 2 keyframe adds
+LAUNCHES_RETRAIN = (0, 0, 0, 2, 12)      # 12 iterations; idf, all keyframes' histograms
 # loop detection on a mapped keyframe once the map holds MinKeyframe
 # keyframes: the query's word assignment; where a cluster qualifies, also
 # relocalize's B = 4 two-way match and its stacked rematch
-LAUNCHES_DETECTION = (0, 0, 1)
-LAUNCHES_DETECTION_RELOC = (1, 1, 0)
+LAUNCHES_DETECTION = (0, 0, 0, 1, 0)
+LAUNCHES_DETECTION_RELOC = (1, 1, 0, 0, 0)
 # a lost frame's relocalization: the stacked rematch and track-local-map's
 # match, the B = 4 two-way match, the query's word assignment
-LAUNCHES_RELOC = (2, 1, 1)
-LAUNCHES_STEREO_PAIR = (0, 1, 0)   # stereo_initialize's pair match (B = 1)
+LAUNCHES_RELOC = (2, 1, 0, 1, 0)
+LAUNCHES_STEREO_PAIR = (0, 1, 0, 0, 0)   # stereo_initialize's pair match (B = 1)
 INIT_LAST = 54                     # frames 0..INIT_LAST from frame 0
 INIT_PROFILE_LAST = 14             # the traced pass runs to the retrain
 SCALE_TOL = 0.05                   # |s_jax / s_port - 1| at adoption
@@ -332,9 +358,10 @@ PROFILE_FRAMES = 8
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 F32_OPS_PER_S = 67e12
-# radius_match_stages' tensor arguments, in order
+# radius_match_stages' tensor arguments, in order, then all its arguments
 TENSOR_ARGS = ("query_desc", "query_xy", "query_octave", "query_valid", "target_desc",
                "target_xy", "target_octave", "target_valid", "radius")
+RADIUS_ARGS = TENSOR_ARGS + ("max_hamming", "min_diff", "octave_tol", "group_rows")
 # few distinct words with close popcounts: distances tie often
 LOW_ENTROPY_WORDS = np.array([0, 1, 3, 0x80000000, 0x80000003, 0xFFFF0000], np.uint32)
 
@@ -390,6 +417,25 @@ def radius_case(rng: np.random.RandomState, n_stages: int, n_query: int,
     }
 
 
+def dedup_case(rng: np.random.RandomState, n_stages: int, n_query: int,
+               n_target: int) -> dict:
+    """numpy inputs of `radius_match_stages` that pile the claims onto few
+    targets: every query valid and an exact copy of one of the first or the
+    last seven targets, every pair a candidate. Under gates (256, -1) every
+    row claims, claims on one target tie at the best distance, and a bank
+    wider than Q + 2 puts claims past the dedup reference's table."""
+    case = radius_case(rng, n_stages, n_query, n_target)
+    src = rng.randint(0, 7, n_query) + np.where(rng.rand(n_query) < 0.5, n_target - 7, 0)
+    case.update(query_desc=case["target_desc"][np.clip(src, 0, n_target - 1)],
+                query_valid=np.ones(n_query, bool), target_valid=np.ones(n_target, bool),
+                query_octave=np.zeros(n_query, np.int32),
+                target_octave=np.zeros(n_target, np.int32),
+                query_xy=np.zeros_like(case["query_xy"]),
+                target_xy=np.zeros_like(case["target_xy"]),
+                radius=np.ones_like(case["radius"]))
+    return case
+
+
 def candidates(a: dict, octave_tol: int) -> torch.Tensor:
     """(S, Q, T) bool: the pairs each stage may match, from a dict of
     `radius_match_stages`' tensor arguments."""
@@ -438,7 +484,7 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-PLAIN_ITERS = 20   # the plain versions take milliseconds a call
+PLAIN_ITERS = 10   # the plain versions take milliseconds a call
 
 
 def in_turns(kernel, plain) -> tuple[float, float, str]:
@@ -481,6 +527,33 @@ def launch_us(fn, kernel_name: str, launches: int = 20) -> float | None:
     if times and sum(times) > 0:
         return sum(times) / len(times)
     return None
+
+
+def traced_pair(kernel, composite, kernel_name: str, calls: int = 20) -> dict:
+    """One profiler session over `calls` calls of `kernel`, a marker kernel
+    (`torch.cuda._sleep`'s spin kernel), then `calls` calls of the
+    `composite` it replaces: the mean device time of the kernel's launches
+    (`kernel_name`) and of the launches of that name inside the composite,
+    the launches traced in each part, and the composite's device events
+    and device time a call. None where the trace holds no device time
+    (reported as not measured)."""
+    events = profile(lambda: ([kernel() for _ in range(calls)], torch.cuda._sleep(1000),
+                              [composite() for _ in range(calls)]))
+    events.sort(key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    named = [i for i, e in enumerate(events) if kernel_name in e.name]
+    split = marks[0] if marks else (named[calls - 1] + 1 if len(named) >= calls else 0)
+    first, rest = events[:split], events[split + bool(marks):]
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs and sum(xs) > 0 else None
+
+    mine = [_device_us(e) for e in first if kernel_name in e.name]
+    inner = [_device_us(e) for e in rest if kernel_name in e.name]
+    composite_us = sum(_device_us(e) for e in rest)
+    return {"us": mean(mine), "us_in_composite": mean(inner), "launches_traced": len(mine),
+            "composite_events": len(rest) / calls if rest else None,
+            "composite_us": composite_us / calls if composite_us > 0 else None}
 
 
 def us_text(us: float | None) -> str:
@@ -549,18 +622,18 @@ def time_hamming(a: torch.Tensor, b: torch.Tensor, where: str) -> dict:
     from mageslam_tpu_torch.ops import hamming
 
     n, m = a.shape[0], b.shape[0]
-    launches_before = hamming.LAUNCHES
-    t_kernel, t_plain, report = in_turns(lambda: hamming.hamming_matrix(a, b),
-                                         lambda: hamming.hamming_matrix_plain(a, b))
-    # library yardstick: ±1 int8 bits, (N, 256) x (256, M) -> 256 - 2 * Hamming
-    a_pm = hamming.pm_bits(a)
-    b_pm_t = hamming.pm_bits(b).t()   # column-major (256, M), as cuBLASLt takes it
-    if not torch.equal(torch._int_mm(a_pm, b_pm_t), 256 - 2 * hamming.hamming_matrix(a, b)):
-        raise AssertionError(f"_int_mm yardstick != 256 - 2 * hamming at {where}")
-    t_library = cuda_ms(lambda: torch._int_mm(a_pm, b_pm_t))
-    us = launch_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
-    lib_us, lib_kernels = call_device_us(lambda: torch._int_mm(a_pm, b_pm_t))
-    hamming.LAUNCHES = launches_before      # timing launches are not a path's
+    with KeptLaunches():
+        t_kernel, t_plain, report = in_turns(lambda: hamming.hamming_matrix(a, b),
+                                             lambda: hamming.hamming_matrix_plain(a, b))
+        # library yardstick: ±1 int8 bits, (N, 256) x (256, M) -> 256 - 2 * Hamming
+        a_pm = hamming.pm_bits(a)
+        b_pm_t = hamming.pm_bits(b).t()   # column-major (256, M), as cuBLASLt takes it
+        if not torch.equal(torch._int_mm(a_pm, b_pm_t),
+                           256 - 2 * hamming.hamming_matrix(a, b)):
+            raise AssertionError(f"_int_mm yardstick != 256 - 2 * hamming at {where}")
+        t_library = cuda_ms(lambda: torch._int_mm(a_pm, b_pm_t))
+        us = launch_us(lambda: hamming.hamming_matrix(a, b), "hamming_kernel")
+        lib_us, lib_kernels = call_device_us(lambda: torch._int_mm(a_pm, b_pm_t))
     bound_ms, bound_by = bound((n + m) * 32 + n * m * 4, int8_ops=2 * 256 * n * m)
     share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
     phase("kernel", f"hamming {where}: {report}; torch._int_mm {t_library:.5f} ms; "
@@ -572,34 +645,266 @@ def time_hamming(a: torch.Tensor, b: torch.Tensor, where: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+class KeptLaunches:
+    """Leaves the launch counts as they were before the with-block: launches
+    made to compare or time a kernel are not a path's."""
+
+    def __enter__(self):
+        self.saved = launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from mageslam_tpu_torch.ops import bow_words, hamming, matching
+
+        (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES,
+         bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES) = self.saved
+
+
+def minimal_launch(device) -> dict:
+    """The device time of the least launch there is, a one-element add_:
+    what a latency-bound kernel can reach, beside the bounds."""
+    x = torch.zeros(1, device=device)
+    us, names = call_device_us(lambda: x.add_(1))
+    ms = cuda_ms(lambda: x.add_(1))
+    phase("kernel", f"minimal launch (one-element add_): {ms:.5f} ms a call (CUDA events), "
+                    f"device {us_text(us)} a launch ({', '.join(names)}) (profiler)")
+    return {"ms": ms, "device_us": us}
+
+
+def bow_case(rng: np.random.RandomState, rows: int, words: int = 64,
+             low: bool = False) -> tuple:
+    """(desc, valid, anchors) numpy inputs of the bag-of-words kernels:
+    full-range or low-entropy words (ties at the best anchor), 85 % valid,
+    the anchors drawn from the rows as the k-medoid's init draws them."""
+    desc = (LOW_ENTROPY_WORDS[rng.randint(0, 6, (max(rows, words), 8))] if low
+            else random_words(rng, max(rows, words)))
+    anchors = desc[rng.permutation(desc.shape[0])[:words]]
+    return (desc[:rows].view(np.int32), rng.rand(rows) < 0.85, anchors.view(np.int32))
+
+
+def bow_tensors(case: tuple, device) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in case)
+
+
+def vocab_step_composite(desc, valid, anchors, bits, hamming_fn):
+    """The k-medoid iteration as the path ran it before bow_words.cu: the
+    (N, V) matrix from `hamming_fn`, then the eager epilogue."""
+    from mageslam_tpu_torch.ops import bow_words
+
+    d = torch.where(valid[:, None], hamming_fn(desc, anchors), bow_words.BIG)
+    member = torch.nn.functional.one_hot(torch.argmin(d, dim=1), anchors.shape[0]) \
+        .to(torch.bool) & valid[:, None]
+    new = bow_words.majority_descriptors(bits, member)
+    return torch.where(member.any(0)[:, None], new, anchors).contiguous()
+
+
+def check_bow_words(device) -> dict:
+    """Both bag-of-words kernels against their plain versions, exact: word
+    assignment at the path's row counts and edges (R = 0, 1, 17, ties,
+    every row invalid, 5 anchors), the k-medoid iteration at the pools'
+    sizes, 12 iterations chained, an empty word, an all-invalid pool and
+    N = 0. Returns the max abs errors (0)."""
+    from mageslam_tpu_torch.ops import bow_words
+
+    rng = np.random.RandomState(11)
+    with KeptLaunches():
+        cases = [(r, 64, False, 0.85) for r in BOW_ASSIGN_ROWS]
+        cases += [(0, 64, False, 0.85), (1, 64, False, 0.85), (17, 64, False, 0.85),
+                  (1000, 64, True, 0.85), (512, 64, False, 0.0), (300, 5, True, 0.85)]
+        for rows, words, low, share in cases:
+            desc, valid, anchors = bow_tensors(bow_case(rng, rows, words, low), device)
+            valid = valid & (torch.rand(rows, device=device) < share)
+            got = bow_words.assign(desc, valid, anchors)
+            want = bow_words.assign_plain(desc, valid, anchors)
+            torch.cuda.synchronize()
+            if got.shape != (rows,) or got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"bow assign kernel != plain at R={rows}, V={words}")
+            phase("kernel", f"bow assign R={rows} V={words}{' low-entropy' if low else ''} "
+                            f"valid share {share}: equal to plain")
+        for rows, low, note in ((1024, False, ""), (7680, False, ""), (7680, True, " low-entropy"),
+                                (0, False, " no row"), (700, False, " every row invalid"),
+                                (700, True, " an empty word")):
+            desc, valid, anchors = bow_tensors(bow_case(rng, rows, 64, low), device)
+            if "invalid" in note:
+                valid = torch.zeros_like(valid)
+            if "empty" in note:   # a repeated anchor: the first copy wins every tie
+                anchors[7] = anchors[3]
+            got, want = anchors, anchors
+            for it in range(12):
+                got = bow_words.vocab_step(desc, valid, got)
+                want = bow_words.vocab_step_plain(desc, valid, want)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"bow vocab_step kernel != plain at N={rows}{note}, "
+                                         f"iteration {it}")
+            phase("kernel", f"bow vocab_step N={rows}{note}: 12 iterations chained, equal to "
+                            f"plain after each")
+    return {"max_abs_err": 0}
+
+
+def time_bow_assign(desc, valid, anchors, where: str) -> dict:
+    """The word-assignment kernel on one call's inputs: kernel and plain in
+    turns, the composites it replaces (hamming.cu or `torch._int_mm`, then
+    argmin and where), device time a launch, the bound."""
+    from mageslam_tpu_torch.ops import bow_words, hamming
+
+    rows, words = desc.shape[0], anchors.shape[0]
+    with KeptLaunches():
+        t_kernel, t_plain, report = in_turns(
+            lambda: bow_words.assign(desc, valid, anchors),
+            lambda: bow_words.assign_plain(desc, valid, anchors))
+        a_pm, b_pm_t = hamming.pm_bits(desc), hamming.pm_bits(anchors).t()
+
+        def with_hamming():
+            return torch.where(valid, torch.argmin(hamming.hamming_matrix(desc, anchors), dim=1)
+                               .to(torch.int32), -1)
+
+        def with_int_mm():   # the largest ±1 product is the least distance
+            return torch.where(valid, torch.argmax(torch._int_mm(a_pm, b_pm_t), dim=1)
+                               .to(torch.int32), -1)
+
+        want = bow_words.assign(desc, valid, anchors)
+        if not (torch.equal(with_hamming(), want) and torch.equal(with_int_mm(), want)):
+            raise AssertionError(f"bow assign composites != kernel on {where}")
+        t_ham = cuda_ms(with_hamming, iters=50)
+        t_int = cuda_ms(with_int_mm, iters=50)
+        tr = traced_pair(lambda: bow_words.assign(desc, valid, anchors), with_hamming,
+                         "bow_assign_kernel")
+        us, comp_us = tr["us"], tr["composite_us"]
+    bound_ms, bound_by = bound(rows * (32 + 1 + 4) + words * 32,
+                               int8_ops=2 * 256 * rows * words)
+    phase("kernel", f"bow assign on {where} (R={rows}, V={words}): {report}; composites "
+                    f"hamming.cu + argmin + where {t_ham:.5f} ms, torch._int_mm + argmax + "
+                    f"where {t_int:.5f} ms; device {us_text(us)} a launch "
+                    f"({tr['launches_traced']} launches traced; the hamming.cu composite "
+                    f"{us_text(comp_us)} a call) (profiler); bound "
+                    f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    return {"shape": [rows, words], "ms": t_kernel, "plain_ms": t_plain,
+            "composite_hamming_kernel_ms": t_ham, "composite_int_mm_ms": t_int,
+            "device_us": us, "composite_device_us": comp_us, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def time_vocab_step(desc, valid, anchors, where: str) -> dict:
+    """The k-medoid kernel on one iteration's inputs: kernel and plain in
+    turns, the composite it replaces (hamming.cu and the eager epilogue),
+    device time a launch and device events a call of each, the bound."""
+    from mageslam_tpu_torch.ops import bow_words, hamming
+
+    rows, words = desc.shape[0], anchors.shape[0]
+    bits = bow_words.descriptor_bits(desc)
+    with KeptLaunches():
+        t_kernel, t_plain, report = in_turns(
+            lambda: bow_words.vocab_step(desc, valid, anchors),
+            lambda: bow_words.vocab_step_plain(desc, valid, anchors))
+
+        def composite():
+            return vocab_step_composite(desc, valid, anchors, bits, hamming.hamming_matrix)
+
+        if not torch.equal(composite(), bow_words.vocab_step(desc, valid, anchors)):
+            raise AssertionError(f"bow vocab_step composite != kernel on {where}")
+        t_comp = cuda_ms(composite, iters=50)
+        tr = traced_pair(lambda: bow_words.vocab_step(desc, valid, anchors), composite,
+                         "bow_vocab_step_kernel")
+        us = tr["us"]
+    # each row read once, the anchors read and written; the ±1 product and
+    # one add a (valid row, bit) vote
+    bound_ms, bound_by = bound(rows * 33 + 2 * words * 32,
+                               f32_ops=256 * int(valid.sum()),
+                               int8_ops=2 * 256 * rows * words)
+    phase("kernel", f"bow vocab_step on {where} (N={rows}, V={words}): {report}; composite "
+                    f"hamming.cu + eager epilogue {t_comp:.5f} ms, {tr['composite_events']} "
+                    f"device events and {us_text(tr['composite_us'])} a call; device "
+                    f"{us_text(us)} a launch ({tr['launches_traced']} launches traced) "
+                    f"(profiler); bound {bound_ms * 1e3:.3f} us "
+                    f"({bound_by})")
+    return {"shape": [rows, words], "ms": t_kernel, "plain_ms": t_plain,
+            "composite_hamming_kernel_ms": t_comp,
+            "composite_device_events": tr["composite_events"],
+            "composite_device_us": tr["composite_us"], "device_us": us,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def _to_device(case: dict, device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(case[k])).to(device) for k in TENSOR_ARGS}
 
 
+def dedup_stats(idx: torch.Tensor, kept: torch.Tensor, group_rows) -> dict:
+    """How a case reaches the dedup's edges: claims, claims dropped, claims
+    on a key past the reference's Q + 2 table."""
+    n_query = idx.shape[1]
+    g = n_query if group_rows is None else group_rows
+    key = idx + (torch.arange(n_query, device=idx.device) // g * g)[None]
+    return {"claims": int((idx >= 0).sum()), "dropped": int(((idx >= 0) & (kept < 0)).sum()),
+            "claims_past_the_table": int(((idx >= 0) & (key >= n_query + 2)).sum())}
+
+
+def match_alone(args: list, max_hamming: int, min_diff: int, octave_tol: int):
+    """The plain match of `radius_match_stages`' tensor arguments before
+    its dedup: (S, Q) idx and dist."""
+    from mageslam_tpu_torch.ops import hamming, matching
+
+    d = hamming.hamming_matrix_plain(args[0], args[4])
+    return matching.radius_from_distances(d, *args[1:4], *args[5:9], max_hamming, min_diff,
+                                          octave_tol)
+
+
 def check_radius_match(device) -> int:
     """The fused kernel against its plain version, exact, at every listed
-    shape and stage count. Returns the max abs error (0)."""
+    shape and stage count: with the dedup by target over the whole call and
+    in groups of a quarter of the rows (relocalization's stacked
+    candidates). Returns the max abs error (0)."""
     from mageslam_tpu_torch.ops import matching
 
     rng = np.random.RandomState(1)
-    for n_stages in RADIUS_STAGES:
-        for n_query, n_target in RADIUS_SHAPES:
-            octave_tol = n_query % 2            # both 0 and 1 occur
-            a = _to_device(radius_case(rng, n_stages, n_query, n_target), device)
-            gates = (6, 1)
-            args = [a[k] for k in TENSOR_ARGS]
-            got = matching.radius_match_stages(*args, *gates, octave_tol)
-            want = matching.radius_match_stages_plain(*args, *gates, octave_tol)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if g.shape != (n_stages, n_query) or g.dtype != torch.int32 or not torch.equal(g, w):
-                    raise AssertionError(f"radius_match kernel != plain at S={n_stages}, "
-                                         f"({n_query}, {n_target})")
-            stats = case_stats(a, octave_tol)
-            matched = int((got[0] >= 0).sum())
-            phase("kernel", f"radius_match S={n_stages} ({n_query}, {n_target}) "
-                            f"octave_tol={octave_tol}: equal to plain; {matched} matched, "
-                            f"{stats}")
+    reached = {"dropped": 0, "claims_past_the_table": 0}
+    with KeptLaunches():
+        for n_stages in RADIUS_STAGES:
+            for n_query, n_target in RADIUS_SHAPES:
+                octave_tol = n_query % 2            # both 0 and 1 occur
+                a = _to_device(radius_case(rng, n_stages, n_query, n_target), device)
+                gates = (6, 1)
+                args = [a[k] for k in TENSOR_ARGS]
+                stats = {}
+                plain_idx = match_alone(args, *gates, octave_tol)[0]
+                for group in (None, max(n_query // 4, 1)):
+                    opts = (*gates, octave_tol, group)
+                    got = matching.radius_match_stages(*args, *opts)
+                    want = matching.radius_match_stages_plain(*args, *opts)
+                    torch.cuda.synchronize()
+                    for g, w in zip(got, want):
+                        if (g.shape != (n_stages, n_query) or g.dtype != torch.int32
+                                or not torch.equal(g, w)):
+                            raise AssertionError(f"radius_match kernel != plain at S={n_stages}, "
+                                                 f"({n_query}, {n_target}), "
+                                                 f"group_rows {group}")
+                    stats[f"group_rows={group}"] = d = dedup_stats(plain_idx, got[0], group)
+                    for k in reached:
+                        reached[k] += d[k]
+                stats["match"] = case_stats(a, octave_tol)
+                phase("kernel", f"radius_match S={n_stages} ({n_query}, {n_target}) "
+                                f"octave_tol={octave_tol}: equal to plain, deduplicated "
+                                f"whole and in groups; {stats}")
+        for n_stages in RADIUS_STAGES:
+            for n_query, n_target, group in DEDUP_CASES:
+                a = _to_device(dedup_case(rng, n_stages, n_query, n_target), device)
+                args = [a[k] for k in TENSOR_ARGS]
+                opts = (256, -1, 0, group)
+                got = matching.radius_match_stages(*args, *opts)
+                want = matching.radius_match_stages_plain(*args, *opts)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"radius_match kernel != plain on the dedup case "
+                                         f"S={n_stages}, ({n_query}, {n_target}), group_rows "
+                                         f"{group}")
+                alone = match_alone(args, 256, -1, 0)[0]
+                d = dedup_stats(alone, got[0], group)
+                for k in reached:
+                    reached[k] += d[k]
+                phase("kernel", f"radius_match dedup case S={n_stages} ({n_query}, {n_target}) "
+                                f"group_rows {group}: equal to plain; {d}")
+    if not all(reached.values()):
+        raise AssertionError(f"the radius-match cases never reached a dedup edge: {reached}")
     return 0
 
 
@@ -609,11 +914,10 @@ def capture_radius_calls(run) -> list[dict]:
     from mageslam_tpu_torch.ops import matching
     from mageslam_tpu_torch.tracking import pose_estimation
 
-    names = TENSOR_ARGS + ("max_hamming", "min_diff", "octave_tol")
     calls, real = [], matching.radius_match_stages
 
     def recording(*args, **kwargs):
-        call = dict(zip(names, args), **kwargs)
+        call = dict(zip(RADIUS_ARGS, args), **kwargs)
         calls.append({k: v.clone() if isinstance(v, torch.Tensor) else v
                       for k, v in call.items()})
         return real(*args, **kwargs)
@@ -629,16 +933,20 @@ def capture_radius_calls(run) -> list[dict]:
 def time_radius_calls(calls: list[dict], where: str, expected) -> dict:
     """Holds the fused kernel exactly against its plain version on each
     captured call and times it there: kernel and plain in turns, device
-    time a launch, and the bound from the call's own inputs. `expected` is
-    the (stages, Q, T) of each call, in order."""
-    from mageslam_tpu_torch.ops import matching
+    time a launch, and the bound from the call's own inputs, beside the
+    composite of the TPU path's structure. `expected` is the (stages, Q, T)
+    of each call, in order."""
+    from mageslam_tpu_torch.ops import hamming, matching
 
     per_call = []
     for c in calls:
         tensors = [c[k] for k in TENSOR_ARGS]
         scalars = (c["max_hamming"], c["min_diff"], c.get("octave_tol", 0))
-        got = matching.radius_match_stages(*tensors, *scalars)
-        want = matching.radius_match_stages_plain(*tensors, *scalars)
+        group = c.get("group_rows")
+        opts = (*scalars, group)
+        with KeptLaunches():
+            got = matching.radius_match_stages(*tensors, *opts)
+            want = matching.radius_match_stages_plain(*tensors, *opts)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"radius_match kernel != plain on the inputs of {where}")
         n_stages, n_query = c["radius"].shape
@@ -653,19 +961,36 @@ def time_radius_calls(calls: list[dict], where: str, expected) -> dict:
         # is a candidate in some stage: 256 multiply-adds of the ±1 bit product
         bound_ms, bound_by = bound(n_bytes, f32_ops=4 * n_stages * int(gated.sum()),
                                    int8_ops=2 * 256 * int(cand.any(0).sum()))
-        t_kernel, t_plain, report = in_turns(
-            lambda: matching.radius_match_stages(*tensors, *scalars),
-            lambda: matching.radius_match_stages_plain(*tensors, *scalars))
-        us = launch_us(lambda: matching.radius_match_stages(*tensors, *scalars),
-                       f"radius_match_kernel<{n_stages}>")
-        row = {"stages": n_stages, "shape": [n_query, n_target], "ms": t_kernel,
-               "plain_ms": t_plain, "device_us": us, "bound_ms": bound_ms,
+
+        def composite():   # the standalone Hamming kernel's matrix, the eager rest
+            d = hamming.hamming_matrix(tensors[0], tensors[4])
+            return matching.dedup_stages_plain(*matching.radius_from_distances(
+                d, *tensors[1:4], *tensors[5:9], *scalars), group)
+
+        with KeptLaunches():
+            t_kernel, t_plain, report = in_turns(
+                lambda: matching.radius_match_stages(*tensors, *opts),
+                lambda: matching.radius_match_stages_plain(*tensors, *opts))
+            if not all(torch.equal(g, w) for g, w in zip(composite(), got)):
+                raise AssertionError(f"radius_match composite != kernel on {where}")
+            t_comp = cuda_ms(composite, iters=50)
+            tr = traced_pair(lambda: matching.radius_match_stages(*tensors, *opts), composite,
+                             f"radius_match_kernel<{n_stages}>")
+            us = tr["us"]
+        row = {"stages": n_stages, "shape": [n_query, n_target], "group_rows": group, "ms": t_kernel, "plain_ms": t_plain,
+               "composite_ms": t_comp, "composite_device_events": tr["composite_events"],
+               "composite_device_us": tr["composite_us"],
+               "device_us": us, "bound_ms": bound_ms,
                "bound_by": bound_by, "candidate_pairs": int(cand.any(0).sum()),
                "matched": int((got[0] >= 0).sum())}
         per_call.append(row)
         phase("kernel", f"radius_match on {where}, call S={n_stages} "
-                        f"({n_query}, {n_target}): equal to plain, {row['matched']} matched; "
-                        f"{report}; device {us_text(us)} a launch (profiler); bound "
+                        f"({n_query}, {n_target}) group_rows {group}: equal to "
+                        f"plain, {row['matched']} kept; {report}; composite (hamming.cu's "
+                        f"matrix + eager match + {n_stages} x eager dedup) {t_comp:.5f} ms, "
+                        f"{tr['composite_events']} device events and "
+                        f"{us_text(tr['composite_us'])} a call; device {us_text(us)} a "
+                        f"launch (profiler); bound "
                         f"{bound_ms * 1e3:.3f} us ({bound_by}; {row['candidate_pairs']} "
                         f"candidate pairs)")
     shapes = tuple((r["stages"], *r["shape"]) for r in per_call)
@@ -673,7 +998,8 @@ def time_radius_calls(calls: list[dict], where: str, expected) -> dict:
         raise AssertionError(f"{where}: radius_match calls (stages, Q, T) {shapes}, "
                              f"expected {tuple(expected)}")
     return {"calls": per_call,
-            **{k: sum(r[k] for r in per_call) for k in ("ms", "plain_ms", "bound_ms")},
+            **{k: sum(r[k] for r in per_call)
+               for k in ("ms", "plain_ms", "composite_ms", "bound_ms")},
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_call)
             else "operations"}
 
@@ -809,14 +1135,12 @@ def mask_diffs(got, want) -> dict:
 
 def check_map_event(device, card: str) -> None:
     """Phase 5: the first mapping event against the JAX map after it."""
-    from mageslam_tpu_torch.ops import hamming, matching
-
     pre = load_event(device)
     post = pre[4]
-    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    reset_launch_counts()
     new_map, _, ki = map_event(pre)
     torch.cuda.synchronize()
-    launches = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+    launches = launch_counts()
     with np.load(MAP_FIXTURE) as z:
         want_ki = int(z["ev_ki"][0])
     diffs = mask_diffs(new_map, post)
@@ -833,14 +1157,13 @@ def check_map_event(device, card: str) -> None:
                              f"{MAP_POINT_ATOL})")
     expected = LAUNCHES_MAPPING_STEP
     if launches != expected:
-        raise AssertionError(f"mapping event launched (radius_match, two_way_match, "
-                             f"hamming) {launches}, expected {expected}")
+        raise AssertionError(f"mapping event launched {KERNELS} {launches}, expected "
+                             f"{expected}")
     phase("mapping", f"first keyframe event from the JAX state: slot {ki}, "
                      f"{int(new_map.kf_valid.sum())} keyframes, {int(live.sum())} points; "
                      f"{', '.join(MAP_MASKS)} equal to the JAX map; kf_pose err "
                      f"{pose_err:.3g} (limit {MAP_POSE_ATOL}), mp_pos err {point_err:.3g} "
-                     f"(limit {MAP_POINT_ATOL}); launches radius_match {launches[0]}, "
-                     f"two_way_match {launches[1]}, hamming {launches[2]}")
+                     f"(limit {MAP_POINT_ATOL}); launches {dict(zip(KERNELS, launches))}")
     ms = []
     for _ in range(MAP_REPEATS):
         torch.cuda.synchronize()
@@ -963,11 +1286,10 @@ def time_two_way(args: tuple, where: str) -> dict:
         out = fn()
         if not all(torch.equal(torch.stack([o[i] for o in out]), got[i]) for i in (0, 1)):
             raise AssertionError(f"the {name} composite != two_way_match kernel on {where}")
-    launches_before = hamming.LAUNCHES
-    t_kernel, t_plain, report = in_turns(lambda: matching.match_two_way(*args),
-                                         lambda: matching.match_two_way_plain(*args))
-    t_ham, t_mm = cuda_ms(with_hamming_kernel, iters=50), cuda_ms(with_int_mm, iters=50)
-    hamming.LAUNCHES = launches_before      # yardstick launches are not the path's
+    with KeptLaunches():
+        t_kernel, t_plain, report = in_turns(lambda: matching.match_two_way(*args),
+                                             lambda: matching.match_two_way_plain(*args))
+        t_ham, t_mm = cuda_ms(with_hamming_kernel, iters=50), cuda_ms(with_int_mm, iters=50)
     us_scan = launch_us(lambda: matching.match_two_way(*args), "two_way_scan_kernel")
     us_gate = launch_us(lambda: matching.match_two_way(*args), "two_way_gate_kernel")
     n_bytes = (desc_a.numel() * 4 + n_batch * n_b * 32 + n_batch * (n_a + n_b)
@@ -1007,11 +1329,9 @@ def time_two_way_init(device) -> dict:
 
 def run_map_window(device, frames, first_id: int):
     """A session from the frame-30 state over `frames`, keyframes mapped.
-    Returns (results, per-frame ms, per-frame launch counts (radius_match,
-    two_way_match, hamming), the mapping events' ms, the map after each
-    event)."""
+    Returns (results, per-frame ms, per-frame launch counts by KERNELS,
+    the mapping events' ms, the map after each event)."""
     from mageslam_tpu_torch import SlamSession, golden_path_settings
-    from mageslam_tpu_torch.ops import hamming, matching
 
     sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM,
                                          WIDTH, HEIGHT, device)
@@ -1031,12 +1351,12 @@ def run_map_window(device, frames, first_id: int):
     results, ms, launches = [], [], []
     for j, img in enumerate(frames):
         i = first_id + j
-        before = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+        before = launch_counts()
         t0 = time.perf_counter()
         results.append(sess.process_frame(img, i * DT, i))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        after = (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+        after = launch_counts()
         launches.append(tuple(a - b for a, b in zip(after, before)))
     return results, ms, launches, map_ms, maps, bows, sess
 
@@ -1044,17 +1364,14 @@ def run_map_window(device, frames, first_id: int):
 def check_map_window(device, card: str):
     """Phase 6. Returns the launch counts of the run, by kernel, and the
     session at its end."""
-    from mageslam_tpu_torch.ops import hamming, matching
-
     with np.load(MAP_FIXTURE) as z:
         ref = {k: z[k] for k in z.files if k.startswith(("ref_", "ev_"))}
     first = int(ref["ref_frame_id"][0])
     frames = render_window(first, first + len(ref["ref_frame_id"]))
     run_map_window(device, frames, first)      # warm pass
-    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    reset_launch_counts()
     results, ms, launches, map_ms, maps, bows, sess = run_map_window(device, frames, first)
-    totals = {"radius_match": matching.LAUNCHES, "two_way_match": matching.TWO_WAY_LAUNCHES,
-              "hamming_matrix": hamming.LAUNCHES}
+    totals = counted_launches()
     pose_err, count_err = check_window(results, ref)
     if sess.loop_det_stats["live"]:
         raise AssertionError(f"loop detection ran {sess.loop_det_stats}: the map never holds "
@@ -1067,7 +1384,7 @@ def check_map_window(device, card: str):
         want = LAUNCHES_KEYFRAME if r.is_keyframe else LAUNCHES_TRACKED
         if got != want:
             raise AssertionError(f"frame {r.frame_id} (keyframe: {r.is_keyframe}) launched "
-                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{KERNELS} {got}, expected "
                                  f"{want}")
     for j, got in enumerate(maps):
         diffs = mask_diffs(got, load_post_map(device, j))
@@ -1218,17 +1535,24 @@ class CountingDraws:
         self.inner.rewind(inner)
 
 
-def launch_counts() -> tuple[int, int, int]:
-    """(radius_match, two_way_match, hamming) launch counts so far."""
-    from mageslam_tpu_torch.ops import hamming, matching
+def launch_counts() -> tuple[int, ...]:
+    """The launch counts so far, by KERNELS."""
+    from mageslam_tpu_torch.ops import bow_words, hamming, matching
 
-    return matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES
+    return (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES,
+            bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    from mageslam_tpu_torch.ops import hamming, matching
+    from mageslam_tpu_torch.ops import bow_words, hamming, matching
 
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    bow_words.ASSIGN_LAUNCHES = bow_words.STEP_LAUNCHES = 0
+
+
+def counted_launches() -> dict:
+    """{kernel: launches so far}, by KERNELS."""
+    return dict(zip(KERNELS, launch_counts()))
 
 
 def expected_launches(obs: dict) -> tuple[str, tuple[int, int, int]]:
@@ -1262,7 +1586,7 @@ def expected_launches(obs: dict) -> tuple[str, tuple[int, int, int]]:
     if obs.get("qualified"):
         name += " (qualified)"
         parts.append(LAUNCHES_DETECTION_RELOC)
-    return name, tuple(sum(p[k] for p in parts) for k in range(3))
+    return name, tuple(sum(p[k] for p in parts) for k in range(len(KERNELS)))
 
 
 class Patched:
@@ -1284,26 +1608,48 @@ class Patched:
             setattr(m, n, real)
 
 
+def call_recorder(calls: list, kind: str, where: str):
+    """A wrap for a kernel wrapper that records each call as (kind, where,
+    its arguments bound to positions with the defaults applied, tensors
+    cloned)."""
+    import functools
+    import inspect
+
+    def wrap(real):
+        sig = inspect.signature(real)
+
+        @functools.wraps(real)
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
+                                        for a in bound.arguments.values()]))
+            return real(*args, **kwargs)
+        return call
+    return wrap
+
+
+def bow_recorders(calls: list, where: str | None = None):
+    """Patch targets recording every call of the two bag-of-words kernels'
+    wrappers (word assignment, the k-medoid iteration)."""
+    from mageslam_tpu_torch.bow import vocab
+    from mageslam_tpu_torch.ops import bow_words
+
+    return [(bow_words, "assign", call_recorder(calls, "bow_assign", where or "word assignment")),
+            (vocab, "vocab_step", call_recorder(calls, "bow_vocab_step",
+                                                where or "vocabulary training"))]
+
+
 def init_call_recorders(calls: list):
     """Patch targets recording every two-way call of mono init and every
-    Hamming call of the bag-of-words index, tensors cloned, with where."""
-    from mageslam_tpu_torch.bow import index, vocab
+    bag-of-words kernel call, tensors cloned, with where."""
     from mageslam_tpu_torch.runtime import init_step
     from mageslam_tpu_torch.tracking import map_init
 
-    def recorder(kind, where):
-        def wrap(real):
-            def call(*args):
-                calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
-                                            for a in args]))
-                return real(*args)
-            return call
-        return wrap
-
-    return [(init_step, "match_two_way", recorder("two_way", "covisibility counter")),
-            (map_init, "match_two_way", recorder("two_way", "pair or third frame")),
-            (vocab, "hamming_matrix", recorder("hamming", "vocabulary training")),
-            (index, "hamming_matrix", recorder("hamming", "word assignment"))]
+    return [(init_step, "match_two_way",
+             call_recorder(calls, "two_way", "covisibility counter")),
+            (map_init, "match_two_way", call_recorder(calls, "two_way", "pair or third frame")),
+            *bow_recorders(calls)]
 
 
 def wall_timers(times: dict):
@@ -1432,7 +1778,7 @@ def check_launch_classes(run: dict, where: str) -> dict:
         name, want = expected_launches(obs)
         if got != want:
             raise AssertionError(f"{where}, frame {r.frame_id} ({name}): launched "
-                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{KERNELS} {got}, expected "
                                  f"{want}")
         seen.setdefault(name, want)
     return seen
@@ -1479,37 +1825,40 @@ def check_bow_state(got, init: dict, when: str) -> str:
 
 
 def check_init_calls(calls: list) -> dict:
-    """Every captured two-way and Hamming call of the path held exactly
-    against the plain version; the pair match and each Hamming shape timed.
-    Returns {"two_way": timing of the pair match, "hamming": {shape: row},
-    "calls": counts}."""
-    from mageslam_tpu_torch.ops import hamming, matching
+    """Every captured two-way and bag-of-words call of the path held exactly
+    against the plain version; the pair match and each bag-of-words kernel
+    at each of its row counts timed. Returns {"two_way": timing of the pair
+    match, "bow_assign" / "bow_vocab_step": {rows: row}, "calls": counts}."""
+    from mageslam_tpu_torch.ops import bow_words, matching
 
     counts, shapes = {}, {}
     matches = [args for kind, where, args in calls if where == "pair or third frame"]
     # the adoption's attempt made the last two: its pair match, its third-frame check
     pair = matches[-2] if len(matches) >= 2 else matches[-1]
-    for kind, where, args in calls:
-        if kind == "two_way":
-            got = matching.match_two_way(*args)
-            want = matching.match_two_way_plain(*args)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"two_way_match kernel != plain on init's {where} call")
-        else:
-            a, b = args
-            if not torch.equal(hamming.hamming_matrix(a, b), hamming.hamming_matrix_plain(a, b)):
-                raise AssertionError(f"hamming kernel != plain on the {where} call "
-                                     f"{tuple(a.shape)} x {tuple(b.shape)}")
-            shapes.setdefault((a.shape[0], b.shape[0]), (a, b, where))
-        counts[f"{kind}: {where}"] = counts.get(f"{kind}: {where}", 0) + 1
+    with KeptLaunches():
+        for kind, where, args in calls:
+            if kind == "two_way":
+                got = matching.match_two_way(*args)
+                want = matching.match_two_way_plain(*args)
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            else:
+                kernel, plain = BOW_KERNELS[kind]
+                equal = torch.equal(getattr(bow_words, kernel)(*args),
+                                    getattr(bow_words, plain)(*args))
+                shapes.setdefault((kind, args[0].shape[0]), (args, where))
+            if not equal:
+                raise AssertionError(f"{kind} kernel != plain on init's {where} call")
+            counts[f"{kind}: {where}"] = counts.get(f"{kind}: {where}", 0) + 1
     phase("init", f"kernel calls of the path held exactly against the plain version: "
                   f"{counts}")
-    rows = {shape: time_hamming(a, b, f"{shape} on the path's {where} call")
-            for shape, (a, b, where) in sorted(shapes.items())}
+    rows = {"bow_assign": {}, "bow_vocab_step": {}}
+    for (kind, n), (args, where) in sorted(shapes.items()):
+        timer = time_bow_assign if kind == "bow_assign" else time_vocab_step
+        rows[kind][n] = timer(*args[:3], f"the path's {where} call")
     d_a, v_a, d_b, v_b, max_hamming, min_diff = pair      # unbatched: as B = 1
     two_way = time_two_way((d_a, v_a[None], d_b[None], v_b[None], max_hamming, min_diff),
                            "mono init's pair match (the adoption's)")
-    return {"two_way": two_way, "hamming": rows, "calls": counts}
+    return {"two_way": two_way, **rows, "calls": counts}
 
 
 def check_from_frame0(device, card: str) -> dict:
@@ -1530,7 +1879,7 @@ def check_from_frame0(device, card: str) -> dict:
     replay = ReplayDraws.from_npz(INIT_FIXTURE, device)
     run = run_from_frame0(device, frames, replay,
                           init_call_recorders(calls) + wall_timers(times))
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
 
     obs = run["obs"]
     anchors = [i for i, o in enumerate(obs) if o["anchor"]]
@@ -1586,7 +1935,7 @@ def check_from_frame0(device, card: str) -> dict:
     phase("init", f"every frame: state and keyframe flag as JAX, max pose err {pose_err:.3g} "
                   f"(t scaled by the ratio; limit {POSE_ATOL}), max tracked diff {count_err} "
                   f"(limit {TRACKED_TOL})")
-    phase("init", f"launches (radius_match, two_way_match, hamming) by frame class, asserted "
+    phase("init", f"launches {KERNELS} by frame class, asserted "
                   f"on every frame: {classes}; totals {totals}")
     init_ms = [t for t, o in zip(run["ms"], obs) if o["was_init"]]
     tracked_ms = [t for t, o in zip(run["ms"], obs)
@@ -1618,7 +1967,7 @@ def check_from_frame0(device, card: str) -> dict:
 
     reset_launch_counts()
     own = run_from_frame0(device, frames, GeneratorDraws(0, device))
-    own_totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    own_totals = counted_launches()
     adopt = own.get("adopt_frame")
     ms_init = MAX_INIT_MS
     if adopt is None or (adopt * DT - own["anchor_ts"]) * 1000.0 > ms_init:
@@ -1668,28 +2017,15 @@ class HostReads:
                 setattr(torch.Tensor, n, own)
 
 
-RADIUS_ARGS = TENSOR_ARGS + ("max_hamming", "min_diff", "octave_tol")
-
-
 def kernel_call_recorders(calls: list, where: str):
     """Patch targets recording the arguments (tensors cloned) of every
-    Hamming, two-way and radius-match call, as (kind, where, args)."""
-    from mageslam_tpu_torch.bow import index
+    bag-of-words, two-way and radius-match call, as (kind, where, args)."""
     from mageslam_tpu_torch.ops import matching
     from mageslam_tpu_torch.tracking import relocalization
 
-    def recorder(kind):
-        def wrap(real):
-            def call(*args):
-                calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
-                                            for a in args]))
-                return real(*args)
-            return call
-        return wrap
-
-    return [(index, "hamming_matrix", recorder("hamming")),
-            (relocalization, "match_two_way", recorder("two_way")),
-            (matching, "radius_match_stages", recorder("radius"))]
+    return [*bow_recorders(calls, where),
+            (relocalization, "match_two_way", call_recorder(calls, "two_way", where)),
+            (matching, "radius_match_stages", call_recorder(calls, "radius", where))]
 
 
 def inside(module, name: str, targets_of):
@@ -1776,22 +2112,26 @@ def retrace(sess, snaps: dict, results: dict, rerun, tracer) -> list[int]:
 def hold_path_calls(calls: list, where: str) -> tuple[dict, dict]:
     """Every captured call held exactly against its plain version. Returns
     (the first call's arguments of each kind, the calls counted by kind)."""
-    from mageslam_tpu_torch.ops import hamming, matching
+    from mageslam_tpu_torch.ops import bow_words, matching
 
     firsts, counts = {}, {}
-    for kind, _, args in calls:
-        if kind == "hamming":
-            equal = torch.equal(hamming.hamming_matrix(*args), hamming.hamming_matrix_plain(*args))
-        elif kind == "two_way":
-            equal = all(torch.equal(g, w) for g, w in zip(matching.match_two_way(*args),
-                                                          matching.match_two_way_plain(*args)))
-        else:
-            equal = all(torch.equal(g, w) for g, w in zip(
-                matching.radius_match_stages(*args), matching.radius_match_stages_plain(*args)))
-        if not equal:
-            raise AssertionError(f"{kind} kernel != plain on a call of {where}")
-        firsts.setdefault(kind, args)
-        counts[kind] = counts.get(kind, 0) + 1
+    with KeptLaunches():
+        for kind, _, args in calls:
+            if kind in BOW_KERNELS:
+                kernel, plain = BOW_KERNELS[kind]
+                equal = torch.equal(getattr(bow_words, kernel)(*args),
+                                    getattr(bow_words, plain)(*args))
+            elif kind == "two_way":
+                equal = all(torch.equal(g, w) for g, w in zip(
+                    matching.match_two_way(*args), matching.match_two_way_plain(*args)))
+            else:
+                equal = all(torch.equal(g, w) for g, w in zip(
+                    matching.radius_match_stages(*args),
+                    matching.radius_match_stages_plain(*args)))
+            if not equal:
+                raise AssertionError(f"{kind} kernel != plain on a call of {where}")
+            firsts.setdefault(kind, args)
+            counts[kind] = counts.get(kind, 0) + 1
     phase("kernel", f"{where}: every kernel call held exactly against the plain version: "
                     f"{counts}")
     return firsts, counts
@@ -1802,8 +2142,8 @@ def check_path_calls(calls: list, where: str, radius_expected) -> dict:
     shape. Returns {kind: timing row}, with the calls counted by kind."""
     firsts, counts = hold_path_calls(calls, where)
     rows = {"calls": counts}
-    if "hamming" in firsts:
-        rows["hamming"] = time_hamming(*firsts["hamming"], f"{where}'s query words")
+    if "bow_assign" in firsts:
+        rows["bow_assign"] = time_bow_assign(*firsts["bow_assign"][:3], f"{where}'s query words")
     if "two_way" in firsts:
         rows["two_way"] = time_two_way(tuple(firsts["two_way"]), f"{where}'s relocalization")
     if "radius" in firsts:
@@ -1884,7 +2224,7 @@ def check_photoreal(device, card: str) -> dict:
                           [step_timers(det_rows, streaming_mod, "detect_loop"),
                            map_recorder(maps), assoc_recorder(assoc),
                            snapshotter(snaps, det_frames)], **kw)
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     sess = run["sess"]
     k = float(ref["map_scale"]) / sess.map_scale
     if abs(k - 1.0) > SCALE_TOL:
@@ -1976,7 +2316,7 @@ def check_photoreal(device, card: str) -> dict:
                        f"against JAX; fossilized poses beyond {POSE_ATOL} (frame, err) "
                        f"{fossil_over or 'none'}; {card}")
     phase("photoreal", f"loop detection {stats} as the JAX session's; a detection (wall ms, "
-                       f"host reads, launches (radius_match, two_way_match, hamming)): "
+                       f"host reads, launches {KERNELS}): "
                        f"{[(round(r['ms'], 3), r['host_reads'], r['launches']) for r in det_rows]}")
     phase("photoreal", f"launches by frame class, asserted on every frame: {classes}; "
                        f"totals {totals}")
@@ -2049,7 +2389,7 @@ def check_reloc(device, card: str) -> dict:
     reloc_rows = []
     reset_launch_counts()
     run = run_reloc(device, ref, [step_timers(reloc_rows, session_mod, "reloc_step")])
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     first = RELOC_SNAP_FRAME + 1
     want = {n: ref[f"ref_{n}"][first:] for n in ("state", "is_kf", "tracked", "R", "t")}
     errs = [hold_frame(r, want, j, 1.0) for j, r in enumerate(run["results"])]
@@ -2174,7 +2514,7 @@ def check_loop_closure(device, card: str, window_sess) -> dict:
                                  f"{scale_err:.3g}, pose err {pose_err:.3g}, or cluster or "
                                  f"associations differ from JAX")
         dets[s] = (m, frame, det, scale_err, pose_err)
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     for s, (m, frame, det, scale_err, pose_err) in dets.items():
         hold_path_calls(calls[s], f"loop scene {s}'s detection")
         got, ms, trace = timed_closure(device, m, det, frame, 5)
@@ -2347,7 +2687,7 @@ def check_stereo_launches(run: dict, where: str) -> dict:
             name, want = expected_launches(obs)
         if got != want:
             raise AssertionError(f"{where}, frame {r.frame_id} ({name}): launched "
-                                 f"(radius_match, two_way_match, hamming) {got}, expected "
+                                 f"{KERNELS} {got}, expected "
                                  f"{want}")
         seen.setdefault(name, want)
     return seen
@@ -2442,7 +2782,7 @@ def check_rig_session(device, ref: dict, card: str) -> dict:
     run = run_stereo(device, sess, steps,
                      [map_recorder(maps), step_timers(events, session_mod, "mapping"),
                       snapshotter(snaps, kf_frames)])
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     classes = check_stereo_launches(run, "rig-tether session")
     pose_err, count_err, diffs = hold_run(run["results"], maps, ref, "rig_", 1.0,
                                           "rig-tether session")
@@ -2531,7 +2871,7 @@ def check_mixed_rig(device, ref: dict, card: str) -> dict:
     maps = []
     reset_launch_counts()
     run = run_stereo(device, sess, steps, [map_recorder(maps)])
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     classes = check_stereo_launches(run, "mixed rig")
     pose_err, count_err, _ = hold_run(run["results"], maps, ref, "mix_", 1.0, "mixed rig")
     _, ok, remap, cam1_16 = sess._stereo_prep
@@ -2591,8 +2931,7 @@ def check_camera_runs(device, card: str) -> dict:
         reset_launch_counts()
         run = run_from_frame0(device, imgs, draws, [map_recorder(maps)], size=(320, 180),
                               timestamps=ts, **kw)
-        totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"),
-                          launch_counts()))
+        totals = counted_launches()
         sess = run["sess"]
         k = float(ref[prefix + "map_scale"]) / sess.map_scale
         if abs(k - 1.0) > SCALE_TOL or any(draws.remaining().values()):
@@ -2699,34 +3038,18 @@ def vi_feed(samples: list):
 
 
 def all_kernel_call_recorders(calls: list, where: str):
-    """Patch targets recording every call of the three kernel wrappers on
-    the monocular path, arguments bound to positions (tensors cloned)."""
-    import inspect
-
-    from mageslam_tpu_torch.bow import index, vocab
+    """Patch targets recording every call of the kernel wrappers on the
+    monocular path, arguments bound to positions (tensors cloned)."""
     from mageslam_tpu_torch.ops import matching
     from mageslam_tpu_torch.runtime import init_step
     from mageslam_tpu_torch.tracking import map_init, pose_estimation, relocalization
     from mageslam_tpu_torch.worldmap import new_points
 
-    def recorder(kind):
-        def wrap(real):
-            sig = inspect.signature(real)
-
-            def call(*args, **kwargs):
-                bound = sig.bind(*args, **kwargs)
-                bound.apply_defaults()
-                calls.append((kind, where, [a.clone() if isinstance(a, torch.Tensor) else a
-                                            for a in bound.arguments.values()]))
-                return real(*args, **kwargs)
-            return call
-        return wrap
-
-    return ([(m, "match_two_way", recorder("two_way"))
+    return ([(m, "match_two_way", call_recorder(calls, "two_way", where))
              for m in (init_step, map_init, new_points, relocalization)]
-            + [(m, "hamming_matrix", recorder("hamming")) for m in (index, vocab)]
-            + [(m, "radius_match_stages", recorder("radius")) for m in (matching,
-                                                                         pose_estimation)])
+            + bow_recorders(calls, where)
+            + [(m, "radius_match_stages", call_recorder(calls, "radius", where))
+               for m in (matching, pose_estimation)])
 
 
 def vi_recorders(rec: dict):
@@ -3079,7 +3402,7 @@ def check_vi(device, card: str) -> dict:
                                                                *vi_recorders(rec)],
                           cam=ref["cam"], size=PHOTOREAL_SIZE, timestamps=ts,
                           settings=settings, feed=vi_feed(samples))
-    totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+    totals = counted_launches()
     sess = run["sess"]
     held = check_vi_run(run, rec, maps, ref, faults)
     try:
@@ -3156,6 +3479,7 @@ STREAM_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_stream.npz")
 STREAM_FIRST, STREAM_LAST = 31, 95        # the stream window, bench frames
 STREAM_CHUNK, STREAM_DEPTH = 8, 4         # bench.py's depth
 CHUNKED_CHUNK = 4
+STREAM_KERNELS = ("radius_match", "two_way_match", "bow_assign")   # launched in the window
 PIPELINED_LAST = 58
 SNAPSHOT_LAST = 62                        # the stream saved after 4 chunks, then continued
 TIMED_LAST = 62                           # the entry points timed on 31-62 (4 chunks)
@@ -3514,11 +3838,14 @@ def check_stream(device, card: str) -> dict:
         torch.cuda.synchronize()
         with HostReads() as hr:
             measured = stream(sess)
-        totals = dict(zip(("radius_match", "two_way_match", "hamming_matrix"), launch_counts()))
+        totals = counted_launches()
         stream_reads = hr.count
         same_results(measured, held_run, "stream run 2 against run 1", faults)
-        if not all(totals.values()):
-            faults.append(f"stream window: a kernel of the path never launched: {totals}")
+        # the window maps keyframes and runs detection but never retrains, and
+        # the standalone Hamming kernel has no path call
+        if not all(totals[k] for k in STREAM_KERNELS) or totals["hamming_matrix"]:
+            faults.append(f"stream window: a kernel of the path never launched, or the "
+                          f"standalone Hamming kernel did: {totals}")
         phase("stream", f"measured stream run: launches {totals}; {stream_reads / len(window):.2f} "
                         f"host reads a frame (whole call / {len(window)} frames)")
 
@@ -3599,7 +3926,7 @@ def main() -> int:
     phase("device", f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card, flush=True)   # name, power limit: as nvidia-smi prints them
 
-    from mageslam_tpu_torch.ops import _build, hamming, matching
+    from mageslam_tpu_torch.ops import _build
 
     path, build_s, log = _build.build()
     _build.library()
@@ -3612,6 +3939,8 @@ def main() -> int:
     ham = check_hamming(device)
     fused_err = check_radius_match(device)
     two_way_err = check_two_way(device)
+    bow_err = check_bow_words(device)
+    least = minimal_launch(device)
     lap("phase 3 (kernel checks)")
 
     with np.load(FIXTURE) as z:
@@ -3626,30 +3955,26 @@ def main() -> int:
     lap("phase 3 (kernel timings on path inputs)")
 
     run_window(device, frames, first)          # warm pass: allocator, caches
-    hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
+    reset_launch_counts()
     results, ms, bow = run_window(device, frames, first)
-    fused_launches, two_way_launches, ham_launches = (
-        matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES)
+    first_path = counted_launches()
     pose_err, count_err = check_window(results, ref)
     kf = [r.frame_id for r in results if r.is_keyframe]
-    extra = LAUNCHES_KEYFRAME[0] - LAUNCHES_TRACKED[0]      # a mapped keyframe's own
-    if (fused_launches != LAUNCHES_TRACKED[0] * len(frames) + extra * len(kf)
-            or two_way_launches != len(kf) or ham_launches != len(kf)):
+    want = tuple(len(frames) * t + len(kf) * (k - t)
+                 for t, k in zip(LAUNCHES_TRACKED, LAUNCHES_KEYFRAME))
+    if launch_counts() != want:
         raise AssertionError(f"over {len(frames)} frames with {len(kf)} keyframes mapped: "
-                             f"radius_match kernel launched {fused_launches} times (expected "
-                             f"{LAUNCHES_TRACKED[0]} a frame and {extra} more a keyframe), "
-                             f"two_way_match {two_way_launches} (expected 1 a "
-                             f"keyframe), hamming kernel {ham_launches} times (expected 1 "
-                             f"a keyframe: its bag-of-words add)")
+                             f"launched {first_path}, expected {dict(zip(KERNELS, want))} "
+                             f"({LAUNCHES_TRACKED} a frame and {LAUNCHES_KEYFRAME} a keyframe "
+                             f"by {KERNELS})")
     phase("slice", f"bag-of-words index after frame {results[-1].frame_id}: "
                    f"{check_bow_event(bow, 0)}")
     phase("slice", f"frames {first}-{first + len(frames) - 1}: all TRACKING, "
                    f"keyframes at {kf}, max pose err {pose_err:.3g} (limit "
                    f"{POSE_ATOL}), max tracked diff {count_err} (limit {TRACKED_TOL})")
-    phase("slice", f"kernel launches in the run: radius_match {fused_launches} "
-                   f"({LAUNCHES_TRACKED[0]} a frame, {extra} more on each of {len(kf)} "
-                   f"mapped keyframes), two_way_match {two_way_launches}, hamming "
-                   f"{ham_launches}")
+    phase("slice", f"kernel launches in the run: {first_path} ({LAUNCHES_TRACKED} a frame "
+                   f"and {LAUNCHES_KEYFRAME} a keyframe frame by {KERNELS}; {len(kf)} "
+                   f"mapped keyframes)")
     phase("slice", f"per-frame wall time (process_frame + synchronize): median "
                    f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max "
                    f"{max(ms):.3f} over {len(ms)} frames after one warm pass; {card}")
@@ -3675,10 +4000,13 @@ def main() -> int:
     stream = check_stream(device, card)
     lap("phase 13 (stream, chunked, pipelined and realtime entry points, orbit, console)")
 
-    # the standalone kernel's top-level row: the adoption's vocabulary call
-    ham_row = init["hamming"][(1024, 64)]
-    first_path = {"radius_match": fused_launches, "two_way_match": two_way_launches,
-                  "hamming_matrix": ham_launches}
+    # the standalone kernel's top-level row: the synthetic (1024, 64), the
+    # shape of the adoption's vocabulary call before bow_words.cu took it
+    ham_row = ham["rows"][BOW_SHAPES[0]]
+    # the bag-of-words kernels' top-level rows: the adoption's calls (its
+    # IDF's word assignment, its first k-medoid iteration)
+    assign_row = init["bow_assign"][1024]
+    step_row = init["bow_vocab_step"][1024]
 
     def launches(kernel: str) -> dict:
         by_path = {"frames_31_54": first_path[kernel],
@@ -3701,6 +4029,16 @@ def main() -> int:
         return {"photoreal_loop_detection": photoreal["rows"].get(kind),
                 "relocalization": reloc["rows"].get(kind)}
 
+    def bow_row(kind: str, row: dict, err: int, note: str) -> dict:
+        return {"name": kind, "route": "cuda", "source": "mageslam_tpu_torch/csrc/bow_words.cu",
+                "replaces": "mageslam_tpu/ops/pallas_kernels.py:57", **launches(kind),
+                "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+                "shape": row["shape"], "device_us": row["device_us"],
+                "composite_hamming_kernel_ms": row["composite_hamming_kernel_ms"],
+                "minimal_launch": least, "note": note,
+                "path_rows": {n: r for n, r in init[kind].items()}}
+
     print(json.dumps({"kernels": [
         {"name": "radius_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/radius_match.cu",
@@ -3711,6 +4049,7 @@ def main() -> int:
          "note": "ms, plain_ms, bound_ms: sum of a tracked frame's two calls (calls); "
                  "keyframe: the same sums and calls of a keyframe event's six more",
          "calls": fused["calls"], "keyframe": fused_map,
+         "composite_ms": fused["composite_ms"], "minimal_launch": least,
          "stacked_reloc_rematch": new_shapes("radius")},
         {"name": "hamming_matrix", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/hamming.cu",
@@ -3720,11 +4059,17 @@ def main() -> int:
          "bound_ms": ham_row["bound_ms"], "bound_by": ham_row["bound_by"],
          "library_ms": ham_row["library_ms"], "shape": ham_row["shape"],
          "device_us": ham_row["device_us"], "library_device_us": ham_row["library_device_us"],
-         "note": "top level: the adoption's vocabulary call (1024, 64); path_rows: one call "
-                 "of each shape the bag-of-words path gives it; rows: synthetic words",
-         "path_rows": {f"{n}x{m}": r for (n, m), r in init["hamming"].items()},
-         "query_words": new_shapes("hamming"),
+         "note": "the standalone port; no path call since bow_words.cu took the "
+                 "bag-of-words calls; top level: synthetic (1024, 64); rows: synthetic words",
          "rows": {f"{n}x{m}": r for (n, m), r in ham["rows"].items()}},
+        {**bow_row("bow_assign", assign_row, bow_err["max_abs_err"],
+                   "no single PyTorch call computes it; top level: the adoption's IDF call "
+                   "(1024 rows); path_rows: one call of each row count; query_words: loop "
+                   "detection's and relocalization's"),
+         "query_words": new_shapes("bow_assign")},
+        bow_row("bow_vocab_step", step_row, bow_err["max_abs_err"],
+                "no single PyTorch call computes it; top level: the adoption's first "
+                "k-medoid iteration (1024 rows); path_rows: the adoption's and the retrain's"),
         {"name": "two_way_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/two_way_match.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",

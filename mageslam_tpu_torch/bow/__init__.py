@@ -1,7 +1,7 @@
 """Place recognition: the flat bag-of-binary-words vocabulary and the
-keyframe index (port of mageslam_tpu/bow). Word assignment is one (N, V)
-Hamming matrix (`ops/hamming.hamming_matrix`, `csrc/hamming.cu` on the
-card) and an argmin; training is a batched Hamming k-medoid."""
+keyframe index (port of mageslam_tpu/bow). Word assignment and each
+iteration of the batched Hamming k-medoid training are one launch of
+`csrc/bow_words.cu` on the card (`ops/bow_words.py`)."""
 
 from .index import (  # noqa: F401
     BowIndex,

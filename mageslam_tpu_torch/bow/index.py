@@ -4,10 +4,12 @@ from the training counts, image vector = L1-normalized sum of its words'
 weights (OnlineBow.cpp:26-28, 161-190, 391-392).
 
 Every function returns a new index and reads nothing back to the host.
-Word assignment is one `hamming_matrix` call however many images it
-covers: `image_vectors` takes a batch of images and assigns all their
-descriptors in one (K·N, V) call. Histograms are one-hot sums, a fixed
-summation order (a scatter-add on the card sums in atomic order).
+Word assignment is one `ops/bow_words.assign` call however many images it
+covers (one `csrc/bow_words.cu` launch on the card, no (K·N, V) matrix in
+memory): `image_vectors` takes a batch of images and assigns all their
+descriptors at once. Histograms are one-hot sums in torch, a fixed
+summation order (a scatter-add, or atomics in a kernel, would sum the
+float weights in atomic order).
 `query_keyframes` scores a query image against every indexed keyframe at
 once (relocalization and loop detection).
 """
@@ -18,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.hamming import WORDS, hamming_matrix
+from ..ops import bow_words
+from ..ops.hamming import WORDS
 
 
 class BowIndex(NamedTuple):
@@ -60,10 +63,10 @@ def grow_index(index: BowIndex, max_keyframes: int) -> BowIndex:
 
 def assign_words(index: BowIndex, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(..., N) int32 word of each descriptor (..., N, 8), -1 where invalid:
-    one `hamming_matrix` call over all of them."""
-    flat = desc.reshape(-1, WORDS)
-    word = torch.argmin(hamming_matrix(flat, index.anchors), dim=1)   # first minimum
-    return torch.where(valid, word.reshape(valid.shape).to(torch.int32), -1)
+    one `bow_words.assign` call over all of them (the first minimum)."""
+    word = bow_words.assign(desc.reshape(-1, WORDS).contiguous(),
+                            valid.reshape(-1).contiguous(), index.anchors)
+    return word.reshape(valid.shape)
 
 
 def _word_sums(word: torch.Tensor, weight: torch.Tensor, num_words: int) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Every `.cu` file under `mageslam_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`) into one shared library with a plain C interface, under
 `mageslam_tpu_torch/_build/`; the `.cuh` headers there (`hamming_tile.cuh`,
-the tensor-core distance tile) are included by them. The library's name
+the tensor-core distance tile of `hamming.cu`, `two_way_match.cu` and
+`bow_words.cu`) are included by them. The library's name
 carries a hash of the sources, headers and flags, so an edited file
 rebuilds and an unchanged tree loads the existing library. A missing `nvcc`
 or a failed build raises.
@@ -77,12 +78,16 @@ def library() -> ctypes.CDLL:
         # a, b, out, n, m, stream
         "mageslam_hamming_matrix": [ptr] * 3 + [i32] * 2 + [ptr],
         # q_desc, q_octave, q_valid, q_xy, radius, t_desc, t_xy, t_octave,
-        # t_valid, out_idx, out_dist, n_stages, n_query, n_target,
-        # octave_tol, max_hamming, min_diff, stream
-        "mageslam_radius_match": [ptr] * 11 + [i32] * 6 + [ptr],
+        # t_valid, out_idx, out_dist, zeroed, claims, n_stages, n_query,
+        # n_target, octave_tol, max_hamming, min_diff, group, stream
+        "mageslam_radius_match": [ptr] * 13 + [i32] * 7 + [ptr],
         # desc_a, valid_a, desc_b, valid_b, scratch, out_idx, out_dist,
         # a_stride, n_batch, n_a, n_b, max_hamming, min_diff, stream
         "mageslam_two_way_match": [ptr] * 7 + [i64] + [i32] * 5 + [ptr],
+        # desc, valid, anchors, out, n_rows, n_words, stream
+        "mageslam_bow_assign": [ptr] * 4 + [i32] * 2 + [ptr],
+        # desc, valid, anchors, out, scratch, n_rows, n_words, stream
+        "mageslam_bow_vocab_step": [ptr] * 5 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,11 +1,14 @@
 """Hamming-distance feature matching (port of mageslam_tpu/ops/matching.py).
 
-- `radius_match_stages` / `radius_match`: the guided spatial match. CUDA
-  tensors launch the fused kernel `csrc/radius_match.cu` (masked best and
-  second-best per query and stage, no (Q, T) matrix in device memory); CPU
-  tensors take `radius_match_stages_plain`, the masked computation on the
-  (Q, T) matrix from `hamming_matrix_plain`. There is no fallback between
-  the two. `LAUNCHES` counts the fused kernel's launches.
+- `radius_match_stages` / `radius_match`: the guided spatial match, then
+  `dedup_by_target` on each stage's result (in groups of `group_rows` query
+  rows). CUDA tensors launch the fused kernel `csrc/radius_match.cu` once a
+  call (masked best and second-best per query and stage, then the dedup
+  across the call's rows; no (Q, T) matrix in device memory); CPU tensors
+  take `radius_match_stages_plain`: `radius_from_distances` on the (Q, T)
+  matrix from `hamming_matrix_plain`, then `dedup_stages_plain`. There is
+  no fallback between the two. `LAUNCHES` counts the fused kernel's
+  launches.
 - `match_two_way`: the mutual best match, batched. CUDA tensors launch the
   fused kernel `csrc/two_way_match.cu` once for the whole batch (both
   directions scanned, no (N, M) matrix in device memory); CPU tensors take
@@ -30,6 +33,10 @@ BIG = 1 << 20
 MAX_STAGES = 4
 LAUNCHES = 0
 TWO_WAY_LAUNCHES = 0
+# the fused dedup's scratch, one a (device, stream): a zeroed buffer (a
+# 64-bit claim and ticket count padded to 16 bytes, then the per-stage
+# tables), which the kernel leaves zero, and the claim list
+_dedup_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _best_and_second(dist: torch.Tensor):
@@ -168,18 +175,16 @@ def candidate_mask(query_xy, query_octave, query_valid, target_xy, target_octave
     return base[None] & (dx <= r) & (dy <= r)
 
 
-def radius_match_stages_plain(query_desc, query_xy, query_octave, query_valid,
-                              target_desc, target_xy, target_octave, target_valid,
-                              radius, max_hamming: int, min_diff: int,
-                              octave_tol: int = 0):
-    """`radius_match_stages` as tensor code on the (Q, T) distance matrix:
-    the reference's radius_match once per stage, sharing the distances."""
+def radius_from_distances(d, query_xy, query_octave, query_valid, target_xy, target_octave,
+                          target_valid, radius, max_hamming: int, min_diff: int,
+                          octave_tol: int = 0):
+    """The guided match's gates on a (Q, T) int32 distance matrix: the
+    reference's radius_match once per stage, sharing the distances, before
+    any dedup. Returns (S, Q) int32 (idx or -1, dist or -1)."""
     n_stages, n_query = radius.shape
-    if target_desc.shape[0] == 0:
-        none = torch.full((n_stages, n_query), -1, dtype=torch.int32,
-                          device=query_desc.device)
+    if d.shape[1] == 0:
+        none = torch.full((n_stages, n_query), -1, dtype=torch.int32, device=d.device)
         return none, none.clone()
-    d = hamming_matrix_plain(query_desc, target_desc)
     cand = candidate_mask(query_xy, query_octave, query_valid, target_xy,
                           target_octave, target_valid, radius, octave_tol)
     idx, dist = [], []
@@ -190,6 +195,18 @@ def radius_match_stages_plain(query_desc, query_xy, query_octave, query_valid,
         idx.append(torch.where(ok, best_idx, -1))
         dist.append(torch.where(ok, best_val, -1))
     return torch.stack(idx), torch.stack(dist)
+
+
+def radius_match_stages_plain(query_desc, query_xy, query_octave, query_valid,
+                              target_desc, target_xy, target_octave, target_valid,
+                              radius, max_hamming: int, min_diff: int,
+                              octave_tol: int = 0, group_rows: int | None = None):
+    """`radius_match_stages` as tensor code: `radius_from_distances` on the
+    (Q, T) matrix from `hamming_matrix_plain`, then `dedup_stages_plain`."""
+    idx, dist = radius_from_distances(
+        hamming_matrix_plain(query_desc, target_desc), query_xy, query_octave, query_valid,
+        target_xy, target_octave, target_valid, radius, max_hamming, min_diff, octave_tol)
+    return dedup_stages_plain(idx, dist, group_rows)
 
 
 def _check(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype,
@@ -204,9 +221,46 @@ def _check(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype,
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
+def dedup_stages_plain(idx: torch.Tensor, dist: torch.Tensor,
+                       group_rows: int | None = None):
+    """`dedup_by_target` on each stage of (S, Q) (idx, dist), the target
+    ids of row q offset by (q // group_rows) * group_rows so that claims of
+    different groups never meet (relocalization's stacked candidates; None:
+    one group). Returns (idx, dist), both -1 where a claim lost."""
+    n_query = idx.shape[1]
+    offset = None
+    if group_rows is not None and group_rows < n_query:
+        rows = torch.arange(n_query, dtype=torch.int32, device=idx.device)
+        offset = torch.div(rows, group_rows, rounding_mode="floor") * group_rows
+    out_idx, out_dist = [], []
+    for s in range(idx.shape[0]):
+        flat = idx[s] if offset is None else torch.where(idx[s] >= 0, idx[s] + offset, -1)
+        kept = dedup_by_target(flat, dist[s]) >= 0
+        out_idx.append(torch.where(kept, idx[s], -1))
+        out_dist.append(torch.where(kept, dist[s], -1))
+    return torch.stack(out_idx), torch.stack(out_dist)
+
+
+def _dedup_buffers(device: torch.device, stream: int, n_stages: int, n_query: int):
+    """(zeroed, claims) scratch of the fused dedup for this (device,
+    stream), grown to the call's size; a new zeroed buffer is filled once."""
+    key = (device.index, stream)
+    zeroed, claims = _dedup_scratch.get(key, (None, None))
+    n_zeroed = 4 + n_stages * 2 * (n_query + 2)
+    if zeroed is None or zeroed.shape[0] < n_zeroed:
+        zeroed = torch.zeros((max(n_zeroed, 2 * (0 if zeroed is None else zeroed.shape[0])),),
+                             dtype=torch.int32, device=device)
+    if claims is None or claims.shape[0] < n_stages * n_query:
+        claims = torch.empty((max(n_stages * n_query, 4096), 4), dtype=torch.int32,
+                             device=device)
+    _dedup_scratch[key] = (zeroed, claims)
+    return zeroed, claims
+
+
 def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
                         target_desc, target_xy, target_octave, target_valid,
-                        radius, max_hamming: int, min_diff: int, octave_tol: int = 0):
+                        radius, max_hamming: int, min_diff: int, octave_tol: int = 0,
+                        group_rows: int | None = None):
     """Guided spatial match for S <= 4 stages over one distance computation.
 
     query_desc (Q, 8) int32 words, query_octave (Q,) int32, query_valid (Q,)
@@ -214,12 +268,18 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
     target_valid (T,); per stage s the query positions query_xy[s] (S, Q, 2)
     float32 and radii radius[s] (S, Q) float32. Per stage and query: the
     best target inside the Chebyshev box on the same octave (± octave_tol),
-    accepted when best <= max_hamming and second - best > min_diff.
+    accepted when best <= max_hamming and second - best > min_diff. Each
+    stage's result then goes through `dedup_by_target` with the targets of
+    row q offset by (q // group_rows) * group_rows, so that claims of
+    different groups never meet (None: one group; `dedup_stages_plain`).
     Returns (S, Q) int32 (idx or -1, dist or -1)."""
     tensors = (query_desc, query_xy, query_octave, query_valid, target_desc,
                target_xy, target_octave, target_valid, radius)
+    if group_rows is not None and group_rows < 1:
+        raise ValueError(f"radius_match_stages: group_rows {group_rows} < 1")
     if all(t.device.type == "cpu" for t in tensors):
-        return radius_match_stages_plain(*tensors, max_hamming, min_diff, octave_tol)
+        return radius_match_stages_plain(*tensors, max_hamming, min_diff, octave_tol,
+                                         group_rows)
     global LAUNCHES
     device = query_desc.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
@@ -240,7 +300,7 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
             (target_valid, "target_valid", torch.bool, (n_target,)),
             (radius, "radius", torch.float32, (n_stages, n_query))):
         _check(t, name, device, dtype, shape)
-    # staged with 16- and 8-byte cp.async
+    # staged with 16-byte bulk copies (or, off that alignment, loads)
     if target_desc.data_ptr() % 16 or target_xy.data_ptr() % 8:
         raise ValueError("radius_match_stages: target_desc must be 16-byte and "
                          "target_xy 8-byte aligned")
@@ -248,12 +308,16 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
     out_dist = torch.empty((n_stages, n_query), dtype=torch.int32, device=device)
     if n_query == 0:
         return out_idx, out_dist
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    zeroed, claims = _dedup_buffers(device, stream, n_stages, n_query)
+    group = n_query if group_rows is None else min(int(group_rows), n_query)
     rc = _build.library().mageslam_radius_match(
         *(t.data_ptr() for t in (query_desc, query_octave, query_valid, query_xy,
                                  radius, target_desc, target_xy, target_octave,
                                  target_valid, out_idx, out_dist)),
+        zeroed.data_ptr(), claims.data_ptr(),
         n_stages, n_query, n_target, int(octave_tol), int(max_hamming),
-        int(min_diff), torch.cuda.current_stream(device).cuda_stream)
+        int(min_diff), group, stream)
     if rc != 0:
         raise RuntimeError(f"radius_match kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -262,11 +326,13 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
 
 def radius_match(query_desc, query_xy, query_octave, query_valid,
                  target_desc, target_xy, target_octave, target_valid,
-                 radius, max_hamming, min_diff, octave_tol: int = 0):
+                 radius, max_hamming, min_diff, octave_tol: int = 0,
+                 group_rows: int | None = None):
     """Guided spatial match, one stage: per query, the best target inside
     the Chebyshev `radius` box (a number or a (Q,) tensor) on the same
     octave (± octave_tol). Accepts best <= max_hamming with second - best >
-    min_diff. Returns (idx or -1, dist or -1), each (Q,)."""
+    min_diff, then the dedup by target (`group_rows` as
+    `radius_match_stages`). Returns (idx or -1, dist or -1), each (Q,)."""
     n_query = query_desc.shape[0]
     if isinstance(radius, torch.Tensor):
         radius = radius.to(device=query_xy.device, dtype=torch.float32)
@@ -277,7 +343,7 @@ def radius_match(query_desc, query_xy, query_octave, query_valid,
     idx, dist = radius_match_stages(
         query_desc, query_xy[None].contiguous(), query_octave, query_valid,
         target_desc, target_xy, target_octave, target_valid, radius,
-        max_hamming, min_diff, octave_tol)
+        max_hamming, min_diff, octave_tol, group_rows)
     return idx[0], dist[0]
 
 

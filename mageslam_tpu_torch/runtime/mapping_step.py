@@ -25,7 +25,7 @@ import torch
 from ..ba.problem import BAState, without_tethers
 from ..ba.step import step_bundle_adjust
 from ..ops.indexing import any_drop, set_drop
-from ..ops.matching import dedup_by_target, radius_match
+from ..ops.matching import radius_match
 from ..tracking.frame_state import TrackedFrame
 from ..worldmap.ba_window import apply_ba_results, build_local_ba_window
 from ..worldmap.covisibility import covisibility_matrix
@@ -75,14 +75,13 @@ def cheap_loop_closure(settings, width: int, height: int, map_state: MapState,
             & (octv >= 0) & (octv <= fes.NumLevels))
 
     unassoc = frame.kp_valid & (frame.assoc < 0)
-    m_idx, m_dist = radius_match(
+    m_idx, _ = radius_match(
         map_state.mp_desc, torch.stack([u, v], dim=-1),
         torch.clamp(octv, 0, fes.NumLevels - 1), good,
         frame.desc, frame.kp_xy, frame.kp_octave, unassoc,
         float(lc.MatchSearchRadius),
         lc.CheapLoopClosureMatchingSettings.MaxHammingDistance,
         lc.CheapLoopClosureMatchingSettings.MinHammingDifference)
-    m_idx = dedup_by_target(m_idx, m_dist)
     hit = m_idx >= 0
     # distinct targets after the dedup: one writer a feature
     new_assoc = set_drop(frame.assoc, torch.where(hit, m_idx, N),

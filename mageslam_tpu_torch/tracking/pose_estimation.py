@@ -18,7 +18,7 @@ import torch
 from ..geometry.camera import project_undistorted
 from ..geometry.se3 import Pose, interpolate_pose
 from ..ops.indexing import scatter_drop, topk_stable
-from ..ops.matching import BIG, dedup_by_target, radius_match_stages
+from ..ops.matching import BIG, radius_match_stages
 from .frame_state import TrackedFrame, TrackingHistory
 
 
@@ -121,8 +121,8 @@ def estimate_pose_with_prior(
         q_oct_c, cand_c, frame.desc.contiguous(), frame.kp_xy, frame.kp_octave,
         frame.kp_valid, radius, max_hamming, min_hamming_diff, octave_tol=0)
 
-    def stage(s):
-        idx = dedup_by_target(stage_idx[s], stage_dist[s])
+    def stage(s):   # the dedup by target ran inside the match
+        idx = stage_idx[s]
         return idx, torch.sum((idx >= 0).to(torch.int32))
 
     denom = torch.clamp_min(n_candidates.to(torch.float32), 1.0)

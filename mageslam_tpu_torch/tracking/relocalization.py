@@ -8,8 +8,9 @@ wins, as in the reference's vmap over candidates. The two matches run once
 for all C candidates: `match_two_way` as one batch of C entries
 (`csrc/two_way_match.cu` on the card), and the guided rematch as one
 `radius_match` over the C candidates' query rows stacked (C·N rows against
-the frame's keypoints, `csrc/radius_match.cu`); each query row is
-independent, so stacking changes no row's answer. PnP-RANSAC and the two
+the frame's keypoints, `csrc/radius_match.cu`, with each candidate's target
+dedup inside the launch: groups of N rows); each query row is independent,
+so stacking changes no row's answer. PnP-RANSAC and the two
 pose-only LM stages run in a loop over the C candidates. Nothing here
 reads the device back to the host.
 
@@ -27,7 +28,7 @@ from ..ba.pose_only import optimize_pose
 from ..geometry.pnp import pnp_ransac
 from ..geometry.se3 import Pose
 from ..ops.indexing import scatter_drop
-from ..ops.matching import dedup_by_target, match_two_way, radius_match
+from ..ops.matching import match_two_way, radius_match
 from ..worldmap.map_state import MapState
 from .frame_state import TrackedFrame
 
@@ -99,17 +100,14 @@ def relocalize(frame: TrackedFrame, state: MapState, candidate_slots: torch.Tens
     proj = torch.stack([cam[0] * Xc[..., 0] * inv_z + cam[2],
                         cam[1] * Xc[..., 1] * inv_z + cam[3]], dim=-1)
     query_ok = kc_valid & ok & (z > 0)
-    r_idx, r_dist = radius_match(
+    # dedup within each candidate: each candidate's N rows a group, whose
+    # target ids the dedup offsets by candidate * N
+    r_idx, _ = radius_match(
         kc_desc.reshape(C * N, -1), proj.reshape(C * N, 2),
         state.kf_kp_octave[kc].reshape(C * N), query_ok.reshape(C * N),
         frame.desc, frame.kp_xy, frame.kp_octave, frame.kp_valid,
-        float(search_radius), max_hamming, min_hamming_diff, octave_tol=1)
-    # dedup within each candidate: target ids offset by candidate
-    offset = (torch.arange(C, device=dev, dtype=torch.int32) * N)[:, None]
+        float(search_radius), max_hamming, min_hamming_diff, octave_tol=1, group_rows=N)
     r_idx = r_idx.reshape(C, N)
-    flat = torch.where(r_idx >= 0, r_idx + offset, -1).reshape(-1)
-    flat = dedup_by_target(flat, r_dist).reshape(C, N)
-    r_idx = torch.where(flat >= 0, flat - offset, -1)
     r_has = r_idx >= 0
     n_radius = torch.sum(r_has.to(torch.int32), dim=1)
 
@@ -131,7 +129,9 @@ def relocalize(frame: TrackedFrame, state: MapState, candidate_slots: torch.Tens
                & final_pct_ok)
 
     # per-keypoint association from the final inliers (the larger point
-    # slot wins where two rows claim one keypoint, as the reference's max)
+    # slot wins where two rows claim one keypoint, as the reference's max),
+    # candidate c's keypoints at rows c * N of one bank
+    offset = (torch.arange(C, device=dev, dtype=torch.int32) * N)[:, None]
     tgt = torch.where(final_inlier, r_idx + offset, C * N).reshape(-1)
     assoc = scatter_drop(torch.full((C * N,), -1, dtype=torch.int32, device=dev), tgt,
                          torch.where(final_inlier, a_safe, -1).reshape(-1), "max")

@@ -22,7 +22,7 @@ import torch
 from ..ba.pose_only import optimize_pose
 from ..geometry.camera import project_undistorted
 from ..ops.indexing import scatter_drop, topk_stable
-from ..ops.matching import dedup_by_target, radius_match
+from ..ops.matching import radius_match
 from ..worldmap.map_state import MapState, predict_octave
 from .frame_state import TrackedFrame
 
@@ -141,12 +141,11 @@ def track_local_map(
     prio = torch.where(is_predicted, -dist_sq, float("-inf"))
     _, cand_idx = topk_stable(prio, C)
     cand_ok = is_predicted[cand_idx]
-    m_idx_c, m_dist_c = radius_match(
+    m_idx_c, _ = radius_match(
         state.mp_desc[cand_idx].contiguous(), proj_xy[cand_idx],
         torch.clamp(octv, 0, num_levels - 1)[cand_idx], cand_ok,
         frame.desc.contiguous(), frame.kp_xy, frame.kp_octave, unassociated,
         match_search_radius, max_hamming, min_hamming_diff)
-    m_idx_c = dedup_by_target(m_idx_c, m_dist_c)
     matched_c = m_idx_c >= 0
     # back to the full point domain (cand_idx holds distinct slots)
     m_idx = torch.full((P,), -1, dtype=torch.int32, device=device)

@@ -25,7 +25,7 @@ from ..geometry.epipolar import inverse_intrinsics
 from ..geometry.se3 import Pose, hat
 from ..geometry.triangulation import triangulate_midpoint
 from ..ops.indexing import add_drop, set_drop
-from ..ops.matching import dedup_by_target, match_two_way, radius_match
+from ..ops.matching import match_two_way, radius_match
 from .map_state import MapState, compute_dmin_dmax, predict_octave
 from .member_index import fidx_add, fidx_set_rows
 from .operations import create_map_points, row_of
@@ -245,10 +245,9 @@ def create_new_map_points(
     kc_unassoc2 = new_state.kf_kp_valid[kc_slots] & (kc_assoc < 0)
     rows_new = []
     for f in range(F):
-        r_idx, r_dist = radius_match(
+        r_idx, _ = radius_match(
             ki_desc, q_xy[f], q_oct[f], cand[f], kc_desc[f], kc_xy[f], kc_oct[f],
             kc_unassoc2[f], float(search_radius), max_hamming, min_hamming_diff)
-        r_idx = dedup_by_target(r_idx, r_dist)
         hit = (r_idx >= 0) & kc_ok[f]
         # distinct targets after the dedup: the set has one writer a slot
         rows_new.append(set_drop(kc_assoc[f], torch.where(hit, r_idx, N),

@@ -23,6 +23,8 @@ package's on the CPU.
   `try_get_volume_of_interest`, against the JAX answers stored there.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import jax.numpy as jnp

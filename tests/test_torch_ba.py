@@ -13,6 +13,8 @@ after four and more steps (a relative 1e-4 of depths of 4 to 7 units, the
 direction a 1.4-unit baseline constrains least); outlier masks and every
 integer output are equal."""
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,15 @@ from test_torch_worldmap import LEVELS, SCALE, T, assert_same, build_scene, to_t
 # the suite runs several worker processes on few cores: a small thread pool
 # each costs less than the default of one thread a core
 torch.set_num_threads(2)
+
+# The JAX references, jitted as the JAX package's own pipeline runs them:
+# one compile each, where eager dispatch compiled and ran each of their
+# hundreds of small operations (the tether Jacobians' vmap of jacfwd alone
+# took most of this file's time).
+j_observation_residuals = jax.jit(jres.observation_residuals)
+j_tether_residuals = jax.jit(jres.tether_residuals)
+j_project_obs = jax.jit(jres.project_obs)
+j_lm_iteration = jax.jit(jschur.lm_iteration)
 
 
 def problem_to_torch(p) -> problem.BAProblem:
@@ -124,8 +135,7 @@ def both(fixture):
 def test_observation_residuals(request, which, huber):
     jp, tp = both(request.getfixturevalue(which))
     got = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, huber)
-    want = jres.observation_residuals(jp, jp.poses, jp.points, jp.obs_info,
-                                      jnp.float32(huber))
+    want = j_observation_residuals(jp, jp.poses, jp.points, jp.obs_info, jnp.float32(huber))
     for name in got._fields:
         # Jacobian entries reach a few hundred: 1e-4 is a relative 1e-6
         close(getattr(got, name), getattr(want, name), 1e-4, name)
@@ -135,7 +145,7 @@ def test_observation_residuals(request, which, huber):
     jcost = jres.robust_cost(want.chi2, jnp.float32(huber), want.w)
     np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-5)
     uv, Xc = residuals.project_obs(tp.poses, tp.intrinsics, tp.points, tp.obs_cam, tp.obs_pt)
-    juv, jXc = jres.project_obs(jp.poses, jp.intrinsics, jp.points, jp.obs_cam, jp.obs_pt)
+    juv, jXc = j_project_obs(jp.poses, jp.intrinsics, jp.points, jp.obs_cam, jp.obs_pt)
     close(uv, juv, 1e-4)
     close(Xc, jXc, 1e-5)
 
@@ -143,7 +153,7 @@ def test_observation_residuals(request, which, huber):
 def test_tether_residuals(tethered):
     jp, tp = both(tethered)
     got = residuals.tether_residuals(tp, tp.poses)
-    want = jres.tether_residuals(jp, jp.poses)
+    want = j_tether_residuals(jp, jp.poses)
     for name in got._fields:
         close(getattr(got, name), getattr(want, name), 1e-5, name)
     assert float(got.chi2.sum()) > 0 and float(got.w[-1]) == 0
@@ -156,12 +166,23 @@ def test_tether_residuals(tethered):
 
 # ---- normal equations and the solve -------------------------------------- #
 def _equations(fixture, huber=1.5):
-    jp, tp = both(fixture)
-    tobs = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, huber)
-    jobs = jres.observation_residuals(jp, jp.poses, jp.points, jp.obs_info, jnp.float32(huber))
-    teq = schur.build_normal_equations(tp, tobs, residuals.tether_residuals(tp, tp.poses))
-    jeq = jschur.build_normal_equations(jp, jobs, jres.tether_residuals(jp, jp.poses))
-    return jp, tp, jeq, teq
+    """Both sides' normal equations of a fixture's problem, made once a
+    fixture. The solve tests take the JAX side's as their input, so its
+    observation residuals and equations stay eager, as the solves'
+    tolerances were set on them (jitted, one dx_p entry moves past 2e-4)."""
+    key = (id(fixture), huber)
+    if key not in _EQUATIONS:
+        jp, tp = both(fixture)
+        tobs = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, huber)
+        jobs = jres.observation_residuals(jp, jp.poses, jp.points, jp.obs_info,
+                                          jnp.float32(huber))
+        teq = schur.build_normal_equations(tp, tobs, residuals.tether_residuals(tp, tp.poses))
+        jeq = jschur.build_normal_equations(jp, jobs, j_tether_residuals(jp, jp.poses))
+        _EQUATIONS[key] = (jp, tp, jeq, teq)
+    return _EQUATIONS[key]
+
+
+_EQUATIONS: dict = {}
 
 
 @pytest.mark.parametrize("which", ["window", "tethered"])
@@ -242,7 +263,7 @@ def test_lm_iteration(request, which):
     jp, tp = both(request.getfixturevalue(which))
     jst, tst = _states(jp, tp)
     for huber in (1.5, 0.0):                       # the second starts from lambda > 0
-        jr = jschur.lm_iteration(jp, jst, jnp.float32(huber))
+        jr = j_lm_iteration(jp, jst, jnp.float32(huber))
         tr = schur.lm_iteration(tp, tst, huber)
         assert bool(tr.accepted) == bool(jr.accepted)
         np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-3)

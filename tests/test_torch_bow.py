@@ -9,6 +9,8 @@ near and exact copies of a few, so that distances tie at the argmin and
 majority votes tie at half.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from mageslam_tpu.bow import index as jindex
 from mageslam_tpu.bow import vocab as jvocab
 from mageslam_tpu_torch.bow import index as tindex
 from mageslam_tpu_torch.bow import vocab as tvocab
+from mageslam_tpu_torch.ops import bow_words
 
 torch.set_num_threads(2)
 
@@ -66,13 +69,74 @@ def test_majority_descriptor_bits():
     desc = words(2, 64)
     member = np.random.RandomState(3).rand(64, 3) < 0.5
     member[:, 2] = False                                  # an empty word
-    bits = tvocab.descriptor_bits(t_of(desc))
-    got = tvocab.majority_descriptors(bits, torch.from_numpy(member)).numpy().view(np.uint32)
+    bits = bow_words.descriptor_bits(t_of(desc))
+    got = bow_words.majority_descriptors(bits, torch.from_numpy(member)).numpy().view(np.uint32)
     for v in range(3):
         want = np.asarray(jvocab._majority_descriptor(jnp.asarray(desc),
                                                        jnp.asarray(member[:, v])))
         np.testing.assert_array_equal(got[v], want)
-    np.testing.assert_array_equal(tvocab.pack_bits(bits).numpy(), t_of(desc).numpy())
+    np.testing.assert_array_equal(bow_words.pack_bits(bits).numpy(), t_of(desc).numpy())
+
+
+def copies(seed: int, n: int) -> np.ndarray:
+    """`words` with every other row an exact copy of row 0 and every fifth
+    of row 1: distances tie at the argmin, and a vocabulary drawn from the
+    rows holds repeated anchors, whose later copies no row joins."""
+    out = words(seed, n)
+    out[::2] = out[0]
+    out[1::5] = out[1]
+    return out
+
+
+@pytest.mark.parametrize("case", ["ties", "all-invalid", "empty-word"])
+def test_vocab_step_plain_is_one_jax_step(case):
+    """`bow_words.vocab_step` (its plain version here) from the anchors the
+    JAX key's Gumbel draw picks is JAX's train_vocabulary with one
+    iteration: exact."""
+    n = 200
+    desc = copies(60, n) if case != "ties" else words(60, n)
+    valid = np.random.RandomState(61).rand(n) < 0.85
+    if case == "all-invalid":
+        valid[:] = False
+    key = jax.random.PRNGKey(62)
+    want = np.asarray(jvocab.train_vocabulary(jnp.asarray(desc), jnp.asarray(valid), key,
+                                              num_words=V, iterations=1))
+    g = vocab_draw(key, n) + np.where(valid, 0.0, -1e9).astype(np.float32)
+    anchors = desc[np.argsort(-g, kind="stable")[:V]]
+    got = bow_words.vocab_step(t_of(desc), t_of(valid), t_of(anchors))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    word = bow_words.assign(t_of(desc), t_of(valid), t_of(anchors)).numpy()
+    empty = sorted(set(range(V)) - set(word[valid].tolist()))
+    if case == "empty-word":      # an anchor no row joins keeps its descriptor
+        assert empty and (got.numpy().view(np.uint32)[empty] == anchors[empty]).all()
+    if case == "all-invalid":
+        assert (word == -1).all() and (got.numpy().view(np.uint32) == anchors).all()
+
+
+@pytest.mark.parametrize("seed", [70, 71])
+def test_assign_plain_matches_jax_with_ties(seed):
+    """`bow_words.assign` against JAX assign_words where distances tie (rows
+    and anchors repeated): the first minimum, -1 where invalid."""
+    desc = copies(seed, 300)
+    anchors = desc[np.random.RandomState(seed).permutation(300)[:V]]
+    valid = np.random.RandomState(seed + 1).rand(300) < 0.8
+    got = bow_words.assign(t_of(desc), t_of(valid), t_of(anchors)).numpy()
+    j = jindex.BowIndex(anchors=jnp.asarray(anchors), idf=jnp.ones(V, jnp.float32),
+                        kf_vectors=jnp.zeros((2, V), jnp.float32), kf_has=jnp.zeros(2, bool),
+                        trained=jnp.asarray(True))
+    want = np.asarray(jindex.assign_words(j, jnp.asarray(desc), jnp.asarray(valid)))
+    np.testing.assert_array_equal(got, want)
+    assert len(set(anchors.view(np.int32)[:, 0].tolist())) < V     # repeated anchors: ties
+
+
+def test_bow_kernels_never_take_the_plain_path_off_the_cpu():
+    """A tensor that is not on the CPU gets the kernel or an error (a meta
+    tensor needs no GPU)."""
+    desc, valid, anchors = t_of(words(80, 64)), torch.ones(64, dtype=torch.bool), \
+        t_of(words(81, V))
+    for fn in (bow_words.assign, bow_words.vocab_step):
+        with pytest.raises(ValueError):
+            fn(desc.to("meta"), valid, anchors)
 
 
 def test_adoption_vocabulary_of_the_benchmark(request):

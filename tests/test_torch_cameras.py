@@ -27,6 +27,8 @@ Those events' `kf_assoc` may differ in LOGGED_ASSOC entries, all else
 exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import os
 

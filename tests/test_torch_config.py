@@ -2,6 +2,8 @@
 JAX package's and bench.py's, no import of either, and entry points that
 run on the card unless the caller asks for the CPU."""
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import os
 import shutil

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels (standalone Hamming, fused
-radius match, fused two-way match) against their plain versions, the
+radius match with its dedup, fused two-way match, bag-of-words word
+assignment and k-medoid iteration) against their plain versions, the
 tracking slice and the first mapping event against the stored JAX outputs,
 local BA with live tethers against the same run on the CPU, the vocabulary
 against the CPU, mono init from frame 0 against the JAX session, and
@@ -18,6 +19,8 @@ it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 import sys
 
@@ -26,7 +29,7 @@ import pytest
 import torch
 
 from mageslam_tpu_torch import SlamSession, bench_world, golden_path_settings
-from mageslam_tpu_torch.ops import hamming, matching
+from mageslam_tpu_torch.ops import bow_words, hamming, matching
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_bench640_f30.npz")
@@ -103,13 +106,49 @@ def test_radius_match_kernel_matches_plain(cuda_device, n_stages, n_query, n_tar
     args = [torch.from_numpy(np.ascontiguousarray(case[k])).to(cuda_device)
             for k in chip_smoke.TENSOR_ARGS]
     for octave_tol in (0, 1):
-        before = matching.LAUNCHES
-        got = matching.radius_match_stages(*args, 6, 1, octave_tol)
-        torch.cuda.synchronize()
-        assert matching.LAUNCHES == before + 1
-        want = matching.radius_match_stages_plain(*args, 6, 1, octave_tol)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        for group in (None, max(n_query // 4, 1)):
+            before = matching.LAUNCHES
+            got = matching.radius_match_stages(*args, 6, 1, octave_tol, group)
+            torch.cuda.synchronize()
+            assert matching.LAUNCHES == before + 1
+            want = matching.radius_match_stages_plain(*args, 6, 1, octave_tol, group)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def dedup_args(device, n_stages, n_query, n_target):
+    case = chip_smoke.dedup_case(np.random.RandomState(n_query + n_target), n_stages,
+                                 n_query, n_target)
+    return [torch.from_numpy(np.ascontiguousarray(case[k])).to(device)
+            for k in chip_smoke.TENSOR_ARGS]
+
+
+@pytest.mark.parametrize("n_stages", chip_smoke.RADIUS_STAGES)
+@pytest.mark.parametrize("n_query,n_target,group", chip_smoke.DEDUP_CASES)
+def test_fused_dedup_at_its_edges(cuda_device, n_stages, n_query, n_target, group):
+    """Tied best claims, claims on targets past Q + 2, relocalization's
+    groups: the fused kernel equals the match then the eager dedup."""
+    args = dedup_args(cuda_device, n_stages, n_query, n_target)
+    got = matching.radius_match_stages(*args, 256, -1, 0, group)
+    want = matching.radius_match_stages_plain(*args, 256, -1, 0, group)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    # again on the same scratch: the kernel left it zero
+    again = matching.radius_match_stages(*args, 256, -1, 0, group)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_fused_dedup_with_nothing_to_match(cuda_device):
+    """Q = 0 launches nothing; T = 0 gives -1 everywhere, deduplicated."""
+    args = dedup_args(cuda_device, 3, 40, 30)
+    before = matching.LAUNCHES
+    idx, dist = matching.radius_match_stages(
+        args[0][:0], args[1][:, :0].contiguous(), args[2][:0], args[3][:0], *args[4:8],
+        args[8][:, :0].contiguous(), 45, 1, 0)
+    assert idx.shape == (3, 0) and matching.LAUNCHES == before
+    idx, dist = matching.radius_match_stages(*args[:4], args[4][:0], args[5][:0], args[6][:0],
+                                             args[7][:0], args[8], 45, 1, 0)
+    assert bool((idx == -1).all()) and bool((dist == -1).all())
 
 
 def test_radius_match_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
@@ -401,6 +440,59 @@ def test_mapping_event_with_a_live_tether_on_the_card(cuda_device):
     assert torch.equal(maps[0].kf_valid.cpu(), maps[1].kf_valid)
 
 
+@pytest.mark.parametrize("rows", chip_smoke.BOW_ASSIGN_ROWS + (0, 1, 17))
+@pytest.mark.parametrize("low", [False, True])
+def test_bow_assign_matches_plain(cuda_device, rows, low):
+    """The word-assignment kernel at the path's row counts and the tile's
+    edges, full-range and low-entropy words (ties at the best anchor)."""
+    rng = np.random.RandomState(rows + low)
+    desc, valid, anchors = chip_smoke.bow_tensors(chip_smoke.bow_case(rng, rows, 64, low),
+                                                  cuda_device)
+    before = bow_words.ASSIGN_LAUNCHES
+    got = bow_words.assign(desc, valid, anchors)
+    torch.cuda.synchronize()
+    assert bow_words.ASSIGN_LAUNCHES == before + (rows > 0)
+    torch.testing.assert_close(got, bow_words.assign_plain(desc, valid, anchors),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,note", [(1024, ""), (7680, ""), (7680, "low"), (0, ""),
+                                       (700, "invalid"), (700, "empty word")])
+def test_bow_vocab_step_matches_plain(cuda_device, rows, note):
+    """The k-medoid kernel, 12 iterations chained, against its plain version
+    after each: the pools' sizes, ties, no row, an all-invalid pool, an
+    anchor that no row joins."""
+    rng = np.random.RandomState(rows + len(note))
+    desc, valid, anchors = chip_smoke.bow_tensors(
+        chip_smoke.bow_case(rng, rows, 64, note == "low"), cuda_device)
+    if note == "invalid":
+        valid = torch.zeros_like(valid)
+    if note == "empty word":
+        anchors[7] = anchors[3]
+    got = want = anchors
+    before = bow_words.STEP_LAUNCHES
+    for _ in range(12):
+        got = bow_words.vocab_step(desc, valid, got)
+        want = bow_words.vocab_step_plain(desc, valid, want)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bow_words.STEP_LAUNCHES == before + 12
+
+
+def test_bow_wrappers_reject_what_the_kernels_cannot_take(cuda_device):
+    rng = np.random.RandomState(3)
+    desc, valid, anchors = chip_smoke.bow_tensors(chip_smoke.bow_case(rng, 64), cuda_device)
+    for fn in (bow_words.assign, bow_words.vocab_step):
+        with pytest.raises(ValueError):                   # a CPU tensor among CUDA ones
+            fn(desc, valid.cpu(), anchors)
+        with pytest.raises(ValueError):                   # 65 anchors
+            fn(desc, valid, torch.cat([anchors, anchors[:1]]))
+        with pytest.raises(TypeError):                    # valid not bool
+            fn(desc, valid.to(torch.int32), anchors)
+        with pytest.raises(ValueError):                   # not 16-byte aligned
+            fn(torch.cat([desc.reshape(-1), desc.reshape(-1)[:1]])[1:].reshape(64, 8), valid,
+               anchors)
+
+
 @pytest.mark.parametrize("n,m", [(512, 64), (1024, 64), (7680, 64), (8192, 64), (24576, 64)])
 def test_kernel_at_bag_of_words_shapes(cuda_device, n, m):
     """The standalone kernel at the shapes the bag-of-words path gives it:
@@ -413,7 +505,7 @@ def test_kernel_at_bag_of_words_shapes(cuda_device, n, m):
 
 
 def test_vocabulary_training_on_the_card_matches_the_cpu(cuda_device):
-    """train_vocabulary (12 kernel launches) and the index built from it,
+    """train_vocabulary (12 k-medoid launches) and the index built from it,
     on the card and on the CPU from the same inputs: anchors exact."""
     from mageslam_tpu_torch.bow import index, vocab
 
@@ -421,10 +513,10 @@ def test_vocabulary_training_on_the_card_matches_the_cpu(cuda_device):
     desc = words(rng, 1024, "cpu")
     valid = torch.from_numpy(rng.rand(1024) < 0.9)
     draws = torch.from_numpy(rng.gumbel(size=1024).astype(np.float32))
-    before = hamming.LAUNCHES
+    before = (hamming.LAUNCHES, bow_words.STEP_LAUNCHES)
     got = vocab.train_vocabulary(desc.to(cuda_device), valid.to(cuda_device),
                                  draws.to(cuda_device))
-    assert hamming.LAUNCHES - before == 12
+    assert (hamming.LAUNCHES, bow_words.STEP_LAUNCHES) == (before[0], before[1] + 12)
     want = vocab.train_vocabulary(desc, valid, draws)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
     idx = index.empty_index(4)._replace(anchors=want)
@@ -683,7 +775,8 @@ def test_stream_on_the_card_matches_jax(cuda_device):
     """`process_frame_stream` over bench frames 31-71 on the card (chunk 8,
     depth 4, a uint8 bank on the card) against the JAX stream call: states,
     keyframes, poses (1e-3), tracked counts (3), the masks after each
-    mapping step and `loop_det_stats`, with every kernel launched."""
+    mapping step and `loop_det_stats`, with every kernel of the path
+    launched and the standalone Hamming kernel never."""
     ref = chip_smoke.load_npz(chip_smoke.STREAM_FIXTURE)
     bank, ts, ids = stream_bank(cuda_device, 71)
     sess = chip_smoke.stream_session(cuda_device, "s71_")
@@ -691,7 +784,8 @@ def test_stream_on_the_card_matches_jax(cuda_device):
     chip_smoke.reset_launch_counts()
     with chip_smoke.Patched(*chip_smoke.stream_event_recorder(events)):
         res = sess.process_frame_stream(bank, ts, ids, start=31, stop=72, chunk=8)
-    assert all(chip_smoke.launch_counts())
+    counts = chip_smoke.counted_launches()
+    assert all(counts[k] for k in chip_smoke.STREAM_KERNELS) and not counts["hamming_matrix"]
     chip_smoke.hold_stream(res, ref, "s71_", range(31, 72), faults, events)
     assert not faults, faults
     assert [sess.loop_det_stats[k] for k in chip_smoke.DET_STATS] == \

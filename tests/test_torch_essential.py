@@ -31,6 +31,8 @@ PnP RANSAC with the JAX key's draws injected: the same inliers, pose within
 eigh of its 12×12 normal matrix; measured 2.0e-4).
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ descriptors may differ where two blurred samples nearly tie: at least
 differ in more than 2 bits. Undistorted positions: atol 1e-4 px.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import sys
 
 import numpy as np

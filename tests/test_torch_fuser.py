@@ -17,6 +17,8 @@ held against the JAX package's on the CPU.
   within 1e-6 relative, priors and filter states within 1e-4.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import jax.numpy as jnp

@@ -2,6 +2,8 @@
 the JAX package, on seeded numpy inputs. Float tolerances are float32
 reassociation bounds (a few ulp of the values involved)."""
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ held exactly against the Pallas kernel (interpret mode) and both JAX forms
 only where a GPU is present: tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch
@@ -81,9 +83,19 @@ def test_radius_match_matches_jax(rng, octave_tol):
         jnp.asarray(qd), jnp.asarray(qxy), jnp.asarray(qo), jnp.asarray(qv),
         jnp.asarray(base), jnp.asarray(txy), jnp.asarray(to), jnp.asarray(tv),
         jnp.asarray(radius), jnp.int32(60), jnp.int32(3), octave_tol=octave_tol)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    # the port's radius_match ends in the dedup by target
+    kept = np.asarray(jmatch.dedup_by_target(want[0], want[1])) >= 0
+    np.testing.assert_array_equal(got[0].numpy(), np.where(kept, want[0], -1))
+    np.testing.assert_array_equal(got[1].numpy(), np.where(kept, want[1], -1))
     assert (got[0].numpy() >= 0).sum() > 5
+    # and the match before it is JAX's radius_match
+    alone = matching.radius_from_distances(
+        hamming.hamming_matrix_plain(as_torch(qd), as_torch(base)),
+        torch.from_numpy(qxy)[None], torch.from_numpy(qo), torch.from_numpy(qv),
+        torch.from_numpy(txy), torch.from_numpy(to), torch.from_numpy(tv),
+        torch.from_numpy(radius)[None], 60, 3, octave_tol)
+    np.testing.assert_array_equal(alone[0][0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(alone[1][0].numpy(), np.asarray(want[1]))
 
 
 def test_match_two_way_matches_jax(rng):

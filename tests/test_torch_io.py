@@ -12,6 +12,8 @@ the JAX run's draws replayed) writes the rows of a direct session's
 them; the evaluate CLI reads them as the JAX one does. All exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import json
 import os

@@ -19,6 +19,8 @@ fixed), so its result is compared after a similarity alignment, to 1e-4,
 and raw to 1e-2.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import jax

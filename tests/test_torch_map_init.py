@@ -23,6 +23,8 @@ point_valid: exact at full width (measured 0 differing); on the synthetic
 scene at most 3 of 120 differ.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,8 @@ keyframes at 54, 68 and 93 mapped.
   mapping core compiled at full width, about 20 s on the CPU).
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import importlib.util
 import os
 

@@ -12,6 +12,8 @@ longer exact, and a rotated offset that sits at .5 rounds the other way
 when its angle moves by an ulp: the differing share is printed.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import os
 

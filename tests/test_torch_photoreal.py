@@ -19,6 +19,8 @@ ATE gate is the JAX test's: at least 80 % of the frames tracked, at least
 75 % of them associated, ATE < 0.06 m.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import numpy as np

@@ -10,6 +10,8 @@ success, winning candidate and associations exact, pose 1e-4; the
 session's states exact, tracked count within 3, pose within 1e-3.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import jax

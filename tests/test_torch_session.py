@@ -17,6 +17,8 @@ init attempt, run again from its recorded inputs and key, gives the
 recorded result.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import ast
 import dataclasses
 import importlib.util
@@ -253,6 +255,7 @@ def test_port_runs_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
+        "import torch; torch.set_num_threads(2)\n"   # as the test files: the suite shares its cores
         "import mageslam_tpu_torch as m\n"
         "from mageslam_tpu_torch import bench_world\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'mageslam_tpu.'))\n"

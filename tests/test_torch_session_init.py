@@ -25,6 +25,8 @@ a frame here. A session with its own generator (no replay) must initialise
 within the init window and track on, checked for structure only.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch

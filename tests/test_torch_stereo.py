@@ -21,6 +21,8 @@ after the mixed rig's bootstrap crosses over with its tether bank and
 per-keyframe intrinsics exact.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import os
 

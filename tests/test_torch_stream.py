@@ -19,6 +19,8 @@ and a disk snapshot mid-stream give the stream call's results bit for
 bit; the index's vectors within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import dataclasses
 import os
 

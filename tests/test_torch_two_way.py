@@ -4,6 +4,8 @@ in both directions, empty rows and columns, and the batched form against a
 loop of single calls. (The kernel itself is held against the plain version
 on the card: tests/test_torch_cuda.py, chip_smoke.py.)"""
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch

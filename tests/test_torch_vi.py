@@ -27,6 +27,8 @@ The port's `render_scene` copy renders two of the fixture's frames bit for
 bit.
 """
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import os
 
 import numpy as np

@@ -6,6 +6,8 @@ both packages on the same state. Integer and mask outputs must be equal;
 floats agree to atol 1e-5 (float32 sums in another order), a few named
 cases to a looser stated bound."""
 
+import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
+
 import numpy as np
 import pytest
 import torch
