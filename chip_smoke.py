@@ -219,7 +219,7 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      a fresh card session and continued, against the uninterrupted run;
    - `process_frame`, `process_frame_stream`, `process_frame_pipelined` and
      `process_frame_realtime` on frames 31-62, each on a fresh session, in
-     three interleaved rounds (the order reversed every other round): wall
+     two interleaved rounds (the order reversed every other round): wall
      ms and host reads a frame each round, and how many frames the realtime
      gate drops back to back (reported, not asserted); the gate with
      max_inflight=0 drops every frame as SKIPPED without counting a
@@ -233,6 +233,33 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      subprocess on the photoreal frames written to a `.mgts` capture, with
      the fixture's intrinsics and the JAX run's draws: exit 0, its CSV at
      ATE < 0.06 m with 80 % tracked.
+14. Diagnostics, from tests/data/torch_port_diag.npz (`tools/
+   export_jax_state.py diag`), the bag-of-words evaluation's 246 views
+   rendered by spawned processes meanwhile:
+   - the state digest (`csrc/state_digest.cu`) held exactly against its
+     plain version, on the card and on the CPU, and against JAX's summary
+     column at three frames of the JAX stream call, and on all-zero,
+     all-NaN-bit, full-bank and one-keyframe cases; timed at the stream's
+     banks and the full ones beside its plain version and its bound;
+   - the stream window 31-95 with a Determinator, launches counted from 0
+     (a digest a chunk frame, every kernel of the path): the checkpoint
+     names as the JAX call's, the integer trees' hashes equal; then again
+     on a fresh session verifying against the recording; the photoreal run
+     (80 frames, `fossilize`) twice with a Determinator and an XRay, the
+     checkpoints and the captures of the two runs identical;
+   - device events and ms of a stream chunk without and with a
+     Determinator in turns, and the digest's µs on those calls; phase 4's
+     tracked frame and phase 13's stream frame with nothing attached held
+     to the counts before the diagnostics existed (EVENTS_TRACKED,
+     EVENTS_STREAM, within EVENTS_TRACKED_SPREAD / EVENTS_STREAM_SPREAD);
+   - one loop closure on tests/test_loop_closure.py's scene `a` with an
+     XRay: each wired stage's capture diffed against JAX's (no missing or
+     shape/dtype record, values within XRAY_ATOL), then replayed;
+   - `apps/bow_eval.py` at full size (3 rooms × 70 views, 36 queries) with
+     JAX's vocabulary draws: each metric of both vocabularies within one
+     query of JAX's and within tests/test_bow_scale.py's floors, every
+     word assignment and k-medoid call held exactly against its plain
+     version, the k-medoid launch timed at N = 15,360 and 17,920.
 
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -650,14 +677,18 @@ class KeptLaunches:
     made to compare or time a kernel are not a path's."""
 
     def __enter__(self):
+        from mageslam_tpu_torch.ops import digest
+
         self.saved = launch_counts()
+        self.saved_digest = digest.LAUNCHES
         return self
 
     def __exit__(self, *exc):
-        from mageslam_tpu_torch.ops import bow_words, hamming, matching
+        from mageslam_tpu_torch.ops import bow_words, digest, hamming, matching
 
         (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES,
          bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES) = self.saved
+        digest.LAUNCHES = self.saved_digest
 
 
 def minimal_launch(device) -> dict:
@@ -1495,8 +1526,9 @@ def check_window(results, ref) -> tuple[float, int]:
     return pose_err, count_err
 
 
-def profile_window(device, frames, first_id: int, card: str) -> None:
-    """Device events and device time per frame over PROFILE_FRAMES frames."""
+def profile_window(device, frames, first_id: int, card: str) -> float | None:
+    """Device events and device time per frame over PROFILE_FRAMES frames.
+    Returns the device events a frame (None: not measured)."""
     from mageslam_tpu_torch import SlamSession, golden_path_settings
 
     sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM,
@@ -1506,13 +1538,14 @@ def profile_window(device, frames, first_id: int, card: str) -> None:
     device_ms = sum(_device_us(e) for e in events) / 1e3
     if not events or device_ms == 0:
         phase("profile", "the profiler recorded no device time: not measured")
-        return
+        return None
     fused = [e for e in events if "radius_match_kernel" in e.name]
     phase("profile", f"{PROFILE_FRAMES} frames: {len(events) / PROFILE_FRAMES:.1f} device "
                      f"events a frame, {device_ms / PROFILE_FRAMES:.3f} ms of device time a "
                      f"frame; radius_match_kernel {len(fused)} launches, "
                      f"{sum(_device_us(e) for e in fused) / max(len(fused), 1):.2f} us "
                      f"each; {card}")
+    return len(events) / PROFILE_FRAMES
 
 
 class CountingDraws:
@@ -1544,10 +1577,11 @@ def launch_counts() -> tuple[int, ...]:
 
 
 def reset_launch_counts() -> None:
-    from mageslam_tpu_torch.ops import bow_words, hamming, matching
+    from mageslam_tpu_torch.ops import bow_words, digest, hamming, matching
 
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
     bow_words.ASSIGN_LAUNCHES = bow_words.STEP_LAUNCHES = 0
+    digest.LAUNCHES = 0
 
 
 def counted_launches() -> dict:
@@ -3483,7 +3517,7 @@ STREAM_KERNELS = ("radius_match", "two_way_match", "bow_assign")   # launched in
 PIPELINED_LAST = 58
 SNAPSHOT_LAST = 62                        # the stream saved after 4 chunks, then continued
 TIMED_LAST = 62                           # the entry points timed on 31-62 (4 chunks)
-TIMED_ROUNDS = 3                          # each entry point timed 3 times, interleaved
+TIMED_ROUNDS = 2                          # each entry point timed twice, interleaved
 REALTIME_PACED, REALTIME_DROPPED = range(31, 39), range(39, 43)
 ORBIT = (324, 288, 240, 135)              # tests/test_stream_loop_ci.py's run
 ORBIT_TRACKED_MIN = 100
@@ -3909,6 +3943,419 @@ def check_stream(device, card: str) -> dict:
             "device_ms_a_frame": dev_ms / STREAM_CHUNK}
 
 
+DIAG_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_diag.npz")
+DIGEST_BANKS = ((2048, 48), (8192, 256))   # the stream window's banks; Budgets' full ones
+DIGEST_TRACED = 100          # launches traced for the digest's µs (late in a run, the
+                             # profiler has been seen to keep none of a session of 20)
+# device events a frame before the diagnostics existed (PERF.md §5: a
+# tracked frame 4,625.9-4,626.0; a stream frame 4,660.5, an earlier tree's
+# runs 4,828.6-4,832.6)
+EVENTS_TRACKED = 4626.0
+EVENTS_STREAM = 4660.5
+EVENTS_TRACKED_SPREAD = 0.5  # a launch more a frame is 1.0
+EVENTS_STREAM_SPREAD = 4.0   # the spread between runs on one stream window
+EXACT_SITES = ("Post.KeyframeDecision", "Mapping.Map")   # integer trees: JAX's hashes
+XRAY_ATOL = {"LoopClosure.Detect": 1e-4, "GlobalBA": 1e-2}   # tests/test_torch_diagnostics.py
+BOW_EVAL = dict(views_per_room=70, query_stride=6, tol=5)   # apps/bow_eval.py's defaults
+BOW_VOCABS = ("all_rooms_vocab", "room0_vocab")
+BOW_METRICS = ("top1", "p_at_4", "qual_recall", "cross_room")
+BOW_FLOORS = {"qual_recall": 0.95, "top1": 0.70}            # tests/test_bow_scale.py
+BOW_CEILINGS = {"cross_room": 0.25}
+BOW_METRIC_ATOL = 1 / 36     # one query of 36
+
+
+def digest_args(case: dict, device) -> tuple:
+    return tuple(torch.from_numpy(np.array(case[k])).to(device)
+                 for k in ("mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk"))
+
+
+def digest_cases(ref: dict) -> dict:
+    """The digest's exactness cases: the JAX stream call's inputs at three
+    frames (with JAX's value), all-zero, all-NaN-bit and full banks, and
+    edges (one word, no point)."""
+    rng = np.random.RandomState(14)
+    cases = {}
+    for j, fid in enumerate(ref["dg_frames"].tolist()):
+        cases[f"jax_frame_{fid}"] = {k: ref[f"dg{j}_{k}"] for k in (
+            "mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk", "digest")}
+
+    def bank(P, K, fill=None, valid=0.7, fsk=3):
+        pos = rng.randn(P, 3).astype(np.float32) * 10
+        t = rng.randn(K, 3).astype(np.float32)
+        if fill is not None:
+            pos = np.full((P, 3), fill, np.uint32).view(np.float32)
+            t = np.full((K, 3), fill, np.uint32).view(np.float32)
+        return {"mp_pos": pos, "kf_t": t, "mp_valid": rng.rand(P) < valid,
+                "kf_valid": rng.rand(K) < valid, "fsk": np.int32(fsk)}
+
+    cases["zeros"] = bank(*DIGEST_BANKS[0], fill=0, valid=0.0, fsk=0)
+    cases["nan_bits"] = bank(*DIGEST_BANKS[0], fill=0xFFFFFFFF, valid=1.0, fsk=7)
+    cases["quiet_nan"] = bank(*DIGEST_BANKS[1], fill=0x7FC00000, valid=1.0, fsk=0)
+    cases["full"] = bank(*DIGEST_BANKS[1], fsk=12)
+    cases["full_all_valid"] = bank(*DIGEST_BANKS[1], valid=1.0, fsk=2**31 - 1)
+    cases["one_keyframe_no_point"] = bank(0, 1, fsk=1)
+    return cases
+
+
+def check_state_digest(device) -> dict:
+    """Phase 14, the digest kernel: exact against its plain version (and
+    JAX's column on the fixture's frames), timed at the stream's bank and
+    the full one. Returns the stream bank's timing row and the error."""
+    from mageslam_tpu_torch.ops import digest
+
+    ref = load_npz(DIAG_FIXTURE)
+    rows, bad = {}, []
+    with KeptLaunches():
+        for name, case in digest_cases(ref).items():
+            args = digest_args(case, device)
+            got = digest.state_digest(*args)
+            torch.cuda.synchronize()
+            plain = digest.state_digest_plain(*args)
+            cpu = digest.state_digest(*digest_args(case, "cpu"))
+            values = [float(got[0]), float(plain[0]), float(cpu[0])]
+            if "digest" in case:
+                values.append(float(case["digest"]))
+            if len(set(values)) != 1 or got.dtype != torch.float32:
+                bad.append((name, values))
+            phase("kernel", f"state_digest {name} (P={args[0].shape[0]}, K={args[1].shape[0]}): "
+                            f"kernel, plain on the card, plain on the CPU"
+                            f"{', JAX' if 'digest' in case else ''}: {values}")
+        for P, K in DIGEST_BANKS:
+            args = digest_args(digest_cases(ref)["full" if P == 8192 else "zeros"], device)
+            t_kernel, t_plain, report = in_turns(lambda: digest.state_digest(*args),
+                                                 lambda: digest.state_digest_plain(*args))
+            us = launch_us(lambda: digest.state_digest(*args), "state_digest_kernel",
+                           launches=DIGEST_TRACED)
+            plain_events = len(profile(lambda: digest.state_digest_plain(*args)))
+            bound_ms, bound_by = bound(4 * 3 * (P + K) + P + K + 4 + 4)
+            rows[f"{P}x{K}"] = {"ms": t_kernel, "plain_ms": t_plain, "device_us": us,
+                                "plain_device_events": plain_events, "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+            phase("kernel", f"state_digest at P={P}, K={K}: {report}; device {us_text(us)} a "
+                            f"launch (profiler); the plain version {plain_events} device "
+                            f"events a call; bound {bound_ms * 1e3:.4f} us ({bound_by})")
+    if bad:
+        raise AssertionError(f"state_digest: kernel, plain and JAX disagree on {bad}")
+    return {"rows": rows, "max_abs_err": 0}
+
+
+def diag_stream(device, bank, det):
+    """The stream window from the fixture's frame-30 state with `det`."""
+    sess = stream_session(device, "s95_")
+    sess.determinator = det
+    return sess, sess.process_frame_stream(bank, [i * DT for i in range(STREAM_LAST + 1)],
+                                           list(range(STREAM_LAST + 1)), start=STREAM_FIRST,
+                                           stop=STREAM_LAST + 1, chunk=STREAM_CHUNK)
+
+
+def replay_twice(run, what: str, faults: list, xray: bool = False, first=None) -> dict:
+    """`run(det, xray)` with a recording Determinator (or `first`, a
+    recording already made by the same run), then again on a fresh session
+    verifying against the recording; with `xray`, each run with an XRay
+    too, the second run's captures diffed against the first's (atol 0).
+    Returns the counts."""
+    import tempfile
+
+    from mageslam_tpu_torch.diagnostics import Determinator, XRay, diff_dumps
+
+    second = Determinator()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, f"run{k}") for k in (1, 2)]
+        if first is None:
+            first = Determinator()
+            run(first, XRay(dirs[0]) if xray else None)
+        path = os.path.join(tmp, "det.json")
+        first.save(path)
+        second.load_for_verify(path)
+        run(second, XRay(dirs[1]) if xray else None)
+        captures = sorted(os.listdir(dirs[0])) if xray else []
+        differ = []
+        if xray:
+            if captures != sorted(os.listdir(dirs[1])):
+                differ.append(("files", captures, sorted(os.listdir(dirs[1]))))
+            for f in captures:
+                d = diff_dumps(os.path.join(dirs[0], f), os.path.join(dirs[1], f))
+                if d:
+                    differ.append((f, d[:2]))
+    n = len(first._stream)
+    if not second.is_deterministic or second._cursor != n or differ:
+        faults.append(f"{what}: the second run diverges: {second.divergences[:4]} "
+                      f"({second._cursor} of {n} checkpoints); xray captures {differ[:4]}")
+    names = sorted({nm for nm, _ in first._stream})
+    phase("diag", f"{what}: {n} checkpoints ({names}), replayed on a fresh session: "
+                  f"is_deterministic {second.is_deterministic}, divergences (index, name) "
+                  f"{[(d['index'], d['name']) for d in second.divergences[:8]] or 'none'}"
+                  + (f"; {len(captures)} xray captures "
+                     f"({sorted({c.split('_', 1)[1] for c in captures})}), those of the two "
+                     f"runs {'identical' if not differ else 'DIFFERENT'}" if xray else ""))
+    return {"checkpoints": n, "deterministic": second.is_deterministic, "captures": len(captures)}
+
+
+def stream_cost(device, bank, card: str, events_plain: dict) -> dict:
+    """Device events and ms a stream frame without and with a Determinator:
+    one chunk traced on fresh sessions, in turns (without, with, with,
+    without); beside the tracked and stream frames of phases 4 and 13."""
+    from mageslam_tpu_torch.diagnostics import Determinator
+
+    digest_us = []
+
+    def traced(det):
+        sess = stream_session(device, None)
+        sess.determinator = det
+        ev = profile(lambda: sess.process_frame_stream(
+            bank, [i * DT for i in range(STREAM_LAST + 1)], list(range(STREAM_LAST + 1)),
+            start=STREAM_FIRST, stop=STREAM_FIRST + STREAM_CHUNK, chunk=STREAM_CHUNK))
+        digest_us.extend(_device_us(e) for e in ev if "state_digest" in e.name)
+        return (len(ev) / STREAM_CHUNK,
+                sum(_device_us(e) for e in ev) / 1e3 / STREAM_CHUNK,
+                sum("state_digest" in e.name for e in ev))
+
+    rows = {"without": [], "with": []}
+    for k in ("without", "with", "with", "without"):
+        rows[k].append(traced(Determinator() if k == "with" else None))
+    rows["digest_us"] = (sum(digest_us) / len(digest_us)
+                         if digest_us and sum(digest_us) > 0 else None)
+    phase("profile", f"a stream frame, one chunk traced on fresh sessions in turns: without "
+                     f"a Determinator (events, device ms, digest launches in the chunk) "
+                     f"{[(round(e, 1), round(m, 3), n) for e, m, n in rows['without']]}, with "
+                     f"{[(round(e, 1), round(m, 3), n) for e, m, n in rows['with']]}, the "
+                     f"digest {us_text(rows['digest_us'])} a launch on the path's calls "
+                     f"({len(digest_us)} traced); "
+                     f"nothing attached, phase 4's tracked frame {events_plain['tracked']} and "
+                     f"phase 13's stream frame {events_plain['stream']} events a frame (before: "
+                     f"{EVENTS_TRACKED}, {EVENTS_STREAM}); {card}")
+    return rows
+
+
+def check_determinism(device, card: str, events_plain: dict, faults: list) -> dict:
+    """Phase 14, replay: the stream window and the photoreal run twice each
+    on the card with a Determinator (the photoreal run with an XRay too);
+    the cost of one attached."""
+    from mageslam_tpu_torch.diagnostics import Determinator
+    from mageslam_tpu_torch.ops import digest
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    ref = load_npz(DIAG_FIXTURE)
+    bank = torch.from_numpy(np.stack(render_window(0, STREAM_LAST + 1))).to(device)
+    # the main path with a Determinator: every count from 0
+    det = Determinator()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    diag_stream(device, bank, det)
+    totals = {**counted_launches(), "state_digest": digest.LAUNCHES}
+    n_frames = (STREAM_LAST + 1 - STREAM_FIRST) // STREAM_CHUNK * STREAM_CHUNK
+    if totals["state_digest"] != n_frames or not all(totals[k] for k in STREAM_KERNELS):
+        faults.append(f"stream window with a Determinator: launches {totals}, expected "
+                      f"{n_frames} digests and every kernel of the path")
+    names = [n for n, _ in det._stream]
+    want = [n.decode() for n in ref["st_names"].tolist()]
+    exact = [(n, h == w) for (n, h), w in zip(det._stream, ref["st_hashes"].tolist())
+             if n in EXACT_SITES]
+    if names != want or not all(ok for _, ok in exact):
+        faults.append(f"stream checkpoints {names} / exact sites {exact} against JAX's {want}")
+    phase("diag", f"stream window {STREAM_FIRST}-{STREAM_LAST} with a Determinator: launches "
+                  f"{totals}; checkpoint names as JAX's: {names == want}; hashes of "
+                  f"{EXACT_SITES} equal to JAX's: {exact}")
+    stream_rep = replay_twice(lambda d, _: diag_stream(device, bank, d), "stream window",
+                              faults, first=det)
+
+    with np.load(PHOTOREAL_FIXTURE) as z:
+        pref = {k: z[k] for k in z.files}
+    frames = list(pref["frames"])
+
+    def photoreal(d, xray):
+        from mageslam_tpu_torch import SlamSession, golden_path_settings
+
+        sess = SlamSession(golden_path_settings(), pref["cam"], *PHOTOREAL_SIZE, device,
+                           draws=ReplayDraws.from_npz(PHOTOREAL_FIXTURE, device),
+                           determinator=d, xray=xray)
+        for i, img in enumerate(frames):
+            sess.process_frame(img, float(pref["timestamps"][i]), i)
+        sess.fossilize(global_ba_steps=None)
+    photo_rep = replay_twice(photoreal, "photoreal run (80 frames, fossilize)", faults,
+                             xray=True)
+    cost = stream_cost(device, bank, card, events_plain)
+    for what, got, base, spread in (
+            ("tracked", events_plain["tracked"], EVENTS_TRACKED, EVENTS_TRACKED_SPREAD),
+            ("stream", events_plain["stream"], EVENTS_STREAM, EVENTS_STREAM_SPREAD)):
+        if got is None or abs(got - base) > spread:
+            faults.append(f"a {what} frame with nothing attached: {got} device events, "
+                          f"{base} before (spread {spread})")
+    return {"totals": totals, "stream": stream_rep["checkpoints"],
+            "photoreal": photo_rep["checkpoints"], "cost": cost}
+
+
+def check_xray(device, faults: list) -> dict:
+    """Phase 14, xray and the closure's checkpoints: one closure on the loop
+    fixture's scene `a` with an XRay and a Determinator attached, each wired
+    stage's capture diffed against JAX's; then the closure replayed."""
+    import dataclasses
+    import tempfile
+
+    from mageslam_tpu_torch import SlamSession, golden_path_settings
+    from mageslam_tpu_torch.config import Budgets
+    from mageslam_tpu_torch.diagnostics import XRay, diff_dumps
+    from mageslam_tpu_torch.runtime.draws import ReplayDraws
+
+    ref = load_npz(DIAG_FIXTURE)
+    loop = load_npz(LOOP_FIXTURE)
+    s = golden_path_settings()
+    K, P, N = (int(v) for v in loop["capacity"])
+    s = dataclasses.replace(
+        s, LoopClosureSettings=dataclasses.replace(
+            s.LoopClosureSettings, EnableLoopClosure=True, MinKeyframe=5, MinClusterSize=2),
+        Budgets=Budgets(MaxFeatures=N, MaxKeyframes=K, MaxMapPoints=P))
+    closed = []
+
+    def close(det, xray):
+        sess = SlamSession(s, loop["cam"], 320, 180, device,
+                           draws=ReplayDraws({"reloc": [ref["xr_draws"]]}, device),
+                           determinator=det, xray=xray)
+        m, bow, frame = loop_scene(loop, "a", device)
+        sess.map, sess.bow, sess.initialized, sess.last_kf_slot = m, bow, True, 5
+        closed.append(sess._post_keyframe(frame, 5, None))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        close(None, XRay(os.path.join(tmp, "port")))
+        files = sorted(os.listdir(os.path.join(tmp, "port")))
+        for stage, key in (("LoopClosure.Detect", "xr_detect_json"), ("GlobalBA", "xr_gba_json")):
+            jax_doc = os.path.join(tmp, f"jax_{stage}.json")
+            with open(jax_doc, "wb") as f:
+                f.write(bytes(ref[key]))
+            port_doc = [os.path.join(tmp, "port", f) for f in files if f.endswith(f"_{stage}.json")]
+            if len(port_doc) != 1:
+                faults.append(f"xray: {len(port_doc)} captures of {stage}")
+                continue
+            raw = diff_dumps(jax_doc, port_doc[0], max_report=1000)
+            d = diff_dumps(jax_doc, port_doc[0], atol=XRAY_ATOL[stage], max_report=1000)
+            structural = [e for e in raw if e["kind"] != "value"]
+            out[stage] = {"structural": structural, "beyond_atol": d,
+                          "value_records": [(e["path"], e.get("max_abs_delta", e["n_diff"]))
+                                            for e in raw]}
+            if structural or d:
+                faults.append(f"xray {stage}: {structural or d}")
+            phase("diag", f"xray {stage} on the card against JAX's capture: missing or "
+                          f"shape/dtype records {structural or 'none'}; value records "
+                          f"(path, max |delta| or count) {out[stage]['value_records'] or 'none'}, "
+                          f"beyond atol {XRAY_ATOL[stage]}: {d or 'none'}")
+    replay = replay_twice(close, "loop closure on scene a", faults, xray=True)
+    if not all(closed):
+        faults.append(f"xray: scene a closed {closed}")
+    return {**out, "closure_replay": replay}
+
+
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _bow_render_job(job):
+    from mageslam_tpu_torch.apps.bow_eval import render_view
+
+    _, seed, phase_i = job
+    return render_view(seed, phase_i, BOW_EVAL["views_per_room"])
+
+
+def start_bow_render():
+    """The bag-of-words evaluation's 246 views, rendered in the background
+    by spawned processes. Returns (pool, pending)."""
+    import multiprocessing
+
+    from mageslam_tpu_torch.apps.bow_eval import view_jobs
+
+    jobs = view_jobs(BOW_EVAL["views_per_room"], BOW_EVAL["query_stride"])
+    # two cores left to the card's host; one thread a worker
+    procs = max(1, (os.cpu_count() or 3) - 2)
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    os.environ.update(dict.fromkeys(THREAD_VARS, "1"))
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(procs)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return pool, pool.map_async(_bow_render_job, jobs, chunksize=-(-len(jobs) // procs))
+
+
+def check_bow_eval(device, render, card: str, faults: list) -> dict:
+    """Phase 14, the bag-of-words scale evaluation at full size with JAX's
+    draws: every kernel call exact, the metrics against JAX's and the
+    floors, the k-medoid launch timed at both pools."""
+    from mageslam_tpu_torch.apps import bow_eval
+    from mageslam_tpu_torch.bow import vocab as bow_vocab
+
+    ref = load_npz(DIAG_FIXTURE)
+    images = render[1].get()
+    calls = []
+    draws = {v: ref[f"bf_{v}_draws"] for v in BOW_VOCABS}
+    views = BOW_EVAL["views_per_room"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # run_bow_scale_eval's two steps, the rendered views handed in
+    with Patched(*bow_recorders(calls, "bow evaluation")):
+        kd, kv, queries = bow_eval.render_views(views, query_stride=BOW_EVAL["query_stride"],
+                                                device=device, verbose=False, images=images)
+        r = bow_eval.evaluate(kd, kv, queries, views, tol=BOW_EVAL["tol"], draws=draws,
+                              verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = counted_launches()
+    metrics = {}
+    for v in BOW_VOCABS:
+        got = [r[v][m] for m in BOW_METRICS]
+        want = ref[f"bf_{v}_metrics"].tolist()
+        top4_same = int((r[v]["top4"] == ref[f"bf_{v}_top4"]).all(axis=1).sum())
+        metrics[v] = {"port": dict(zip(BOW_METRICS, got)), "jax": dict(zip(BOW_METRICS, want)),
+                      "top4_lists_equal": top4_same}
+        if max(abs(a - b) for a, b in zip(got, want)) > BOW_METRIC_ATOL + 1e-12:
+            faults.append(f"bow eval {v}: {got} against JAX's {want} (limit {BOW_METRIC_ATOL})")
+        low = {m: r[v][m] for m, f in BOW_FLOORS.items() if not r[v][m] >= f}
+        high = {m: r[v][m] for m, c in BOW_CEILINGS.items() if not r[v][m] <= c}
+        if low or high or r["keyframes"] < 200:
+            faults.append(f"bow eval {v}: beyond tests/test_bow_scale.py's floors {low} {high}")
+        phase("bow_eval", f"{v}: port {metrics[v]['port']}, JAX {metrics[v]['jax']}; top-4 "
+                          f"lists equal to JAX's {top4_same} of {r['queries']}")
+    _, counts = hold_path_calls(calls, "the bag-of-words evaluation")
+    steps = {}
+    for v, (pd, pv) in bow_eval.vocabulary_pools(kd, kv, views).items():
+        g = torch.from_numpy(draws[v]).to(device) + torch.where(pv, 0.0, -1e9)
+        anchors = pd[torch.sort(-g, stable=True).indices[:64]].contiguous()
+        steps[v] = time_vocab_step(pd.contiguous(), pv, anchors, f"the {v} pool")
+        # the training's own 12 launches, traced: µs a launch on the path
+        with KeptLaunches():
+            ev = [_device_us(e) for e in profile(lambda: bow_vocab.train_vocabulary(
+                pd, pv, torch.from_numpy(draws[v]).to(device))) if "bow_vocab_step" in e.name]
+        steps[v]["path_us"] = sum(ev) / len(ev) if ev and sum(ev) > 0 else None
+        steps[v]["path_traced"] = len(ev)
+    phase("bow_eval", f"{r['keyframes']} keyframes, {r['queries']} queries; launches {totals}; "
+                      f"calls held {counts}; analysis and evaluation {wall:.1f} s after "
+                      f"rendering; bow_vocab_step a launch (N, µs in the synthetic timing, "
+                      f"µs in the training's own calls, launches traced of 12): "
+                      f"{ {v: (x['shape'][0], us_text(x['device_us']), us_text(x['path_us']), x['path_traced']) for v, x in steps.items()} }; {card}")
+    return {"metrics": metrics, "totals": totals, "vocab_step": steps}
+
+
+def check_diagnostics(device, card: str, events_plain: dict) -> dict:
+    """Phase 14."""
+    clock = time.perf_counter()
+    faults = []
+    render = start_bow_render()
+    try:
+        dig = check_state_digest(device)
+        phase("time", f"phase 14, digest: {time.perf_counter() - clock:.1f} s")
+        rep = check_determinism(device, card, events_plain, faults)
+        phase("time", f"phase 14, replays: {time.perf_counter() - clock:.1f} s")
+        xr = check_xray(device, faults)
+        bow = check_bow_eval(device, render, card, faults)
+        phase("time", f"phase 14, bag-of-words evaluation: {time.perf_counter() - clock:.1f} s")
+    finally:
+        render[0].terminate()
+    if faults:
+        raise AssertionError("phase 14 (diagnostics): " + " | ".join(faults))
+    return {"digest": dig, "replay": rep, "xray": xr, "bow": bow}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3978,7 +4425,7 @@ def main() -> int:
     phase("slice", f"per-frame wall time (process_frame + synchronize): median "
                    f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max "
                    f"{max(ms):.3f} over {len(ms)} frames after one warm pass; {card}")
-    profile_window(device, frames, first, card)
+    tracked_events = profile_window(device, frames, first, card)
     lap("phase 4 (slice)")
 
     check_map_event(device, card)
@@ -3999,7 +4446,14 @@ def main() -> int:
     lap("phase 12 (visual-inertial run and the fossilized map)")
     stream = check_stream(device, card)
     lap("phase 13 (stream, chunked, pipelined and realtime entry points, orbit, console)")
+    diag = check_diagnostics(device, card, {"tracked": tracked_events,
+                                            "stream": stream["events_a_frame"],
+                                            "stream_ms": stream["device_ms_a_frame"]})
+    lap("phase 14 (diagnostics: digest, replays, xray, bag-of-words evaluation)")
 
+    digest_row = {k: diag["digest"]["rows"]["2048x48"][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_us")}
+    digest_row["device_us_on_path"] = diag["replay"]["cost"]["digest_us"]
     # the standalone kernel's top-level row: the synthetic (1024, 64), the
     # shape of the adoption's vocabulary call before bow_words.cu took it
     ham_row = ham["rows"][BOW_SHAPES[0]]
@@ -4022,7 +4476,9 @@ def main() -> int:
                    "distorted_keypoints_frames_0_39": stereo["kp_"]["totals"][kernel],
                    "oriented_photoreal_frames_0_29": stereo["orient_"]["totals"][kernel],
                    "vi_frames_0_79": vi["totals"][kernel],
-                   "stream_frames_31_95": stream["totals"][kernel]}
+                   "stream_frames_31_95": stream["totals"][kernel],
+                   "stream_frames_31_95_determinator": diag["replay"]["totals"][kernel],
+                   "bow_eval_210_keyframes": diag["bow"]["totals"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def new_shapes(kind: str) -> dict:
@@ -4085,6 +4541,18 @@ def main() -> int:
                                     "device_us_gate")},
          "init": init["two_way"], "init_synthetic": two_way_init,
          "reloc_b4": new_shapes("two_way"), "stereo_pair": stereo["pair"]},
+        {"name": "state_digest", "route": "cuda",
+         "source": "mageslam_tpu_torch/csrc/state_digest.cu",
+         "replaces": "mageslam_tpu/runtime/pipeline.py:1201",
+         "launches": diag["replay"]["totals"]["state_digest"],
+         "launches_by_path": {"stream_frames_31_95_determinator":
+                              diag["replay"]["totals"]["state_digest"]},
+         "max_abs_err": diag["digest"]["max_abs_err"], **digest_row,
+         "bound_by": digest_row["bound_by"], "library_ms": None,
+         "note": "no Pallas kernel: the XLA digest of the stream's scan body; no PyTorch "
+                 "call XOR-reduces; top level: the stream window's banks (2048, 48); rows: "
+                 "those and the full banks (8192, 256); launched only with a Determinator",
+         "rows": diag["digest"]["rows"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -474,6 +474,18 @@ class MageSlamSettings:
     Budgets: Budgets = field(default_factory=Budgets)
 
 
+def get_settings_for_camera(settings: MageSlamSettings,
+                            camera: CameraIdentity) -> PerCameraSettings:
+    """The per-camera settings of `camera` (MageSettings.h:365-379)."""
+    if camera == CameraIdentity.MONO:
+        return settings.MonoSettings.MonoCamera
+    if camera == CameraIdentity.STEREO_1:
+        return settings.StereoSettings.Camera1
+    if camera == CameraIdentity.STEREO_2:
+        return settings.StereoSettings.Camera2
+    raise ValueError(f"Unhandled CameraIdentity {camera}")
+
+
 def _from_dict(cls: type, data: dict[str, Any]) -> Any:
     kwargs: dict[str, Any] = {}
     for f in dataclasses.fields(cls):
@@ -502,6 +514,11 @@ def load_settings(path_or_dict: str | dict[str, Any]) -> MageSlamSettings:
         data = path_or_dict
     s = _from_dict(MageSlamSettings, data)
     return dataclasses.replace(s, Metadata=dataclasses.replace(s.Metadata, LoadedFromFile=True))
+
+
+def to_dict(settings: Any) -> dict[str, Any]:
+    """The settings as nested dicts, the form `load_settings` reads."""
+    return dataclasses.asdict(settings)
 
 
 def golden_path_settings() -> MageSlamSettings:

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every `.cu` file under `mageslam_tpu_torch/csrc/` is compiled by `nvcc` for
-Hopper (`sm_90a`) into one shared library with a plain C interface, under
+Hopper (`sm_90a`), one `nvcc` a file, all started together, and the objects
+are linked into one shared library with a plain C interface, under
 `mageslam_tpu_torch/_build/`; the `.cuh` headers there (`hamming_tile.cuh`,
 the tensor-core distance tile of `hamming.cu`, `two_way_match.cu` and
-`bow_words.cu`) are included by them. The library's name
+`bow_words.cu`) are included by them; `state_digest.cu` stands alone. The library's name
 carries a hash of the sources, headers and flags, so an edited file
 rebuilds and an unchanged tree loads the existing library. A missing `nvcc`
 or a failed build raises.
@@ -23,8 +24,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 
 def sources() -> list[str]:
@@ -43,7 +45,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -56,17 +58,31 @@ def build() -> tuple[str, float, str]:
     path = library_path()
     if os.path.exists(path):
         return path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    objs_dir = f"{tmp}.objs"
+    os.makedirs(objs_dir, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     units = [s for s in sources() if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *units],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}"
-                           f"\n{proc.stderr}")
+    objs = [os.path.join(objs_dir, os.path.basename(u) + ".o") for u in units]
+    compiles = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", o, u], text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                for u, o in zip(units, objs)]
+    logs = [c.communicate()[0] for c in compiles]
+    failed = [(u, c.returncode, log) for u, c, log in zip(units, compiles, logs)
+              if c.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs], text=True,
+                              capture_output=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, logs[-1]))
+    shutil.rmtree(objs_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(
+            f"{os.path.basename(u)} ({rc}):\n{log}" for u, rc, log in failed))
     os.replace(tmp, path)   # atomic: a concurrent build sees old or new
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,6 +104,9 @@ def library() -> ctypes.CDLL:
         "mageslam_bow_assign": [ptr] * 4 + [i32] * 2 + [ptr],
         # desc, valid, anchors, out, scratch, n_rows, n_words, stream
         "mageslam_bow_vocab_step": [ptr] * 5 + [i32] * 2 + [ptr],
+        # mp_pos, kf_t, mp_valid, kf_valid, fsk, out, scratch, n_points,
+        # n_keyframes, stream
+        "mageslam_state_digest": [ptr] * 7 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -24,9 +24,11 @@ from ..worldmap.map_state import MapState
 
 
 def global_ba(settings, map_state: MapState, ki: int, steps: int, huber: float = 0.9,
-              max_outlier_error: float = 4.0, bas=None):
+              max_outlier_error: float = 4.0, bas=None, capture=None):
     """Returns (map_state, mse as a float). `bas` gives the schedule's
-    constants (default: settings.BundleAdjustSettings)."""
+    constants (default: settings.BundleAdjustSettings). `capture`, where
+    given, is called with the reference's xray inputs and outputs
+    (pipeline.py:2351-2356)."""
     b = settings.Budgets
     fes = settings.MonoSettings.MonoCamera.FeatureExtractorSettings
     if bas is None:
@@ -45,6 +47,11 @@ def global_ba(settings, map_state: MapState, ki: int, steps: int, huber: float =
         max_outlier_error_scale=bas.MaxOutlierErrorScaleFactor,
         min_mean_square_error=bas.MinMeanSquareError, num_steps=steps,
         steps_per_run=max(bas.NumStepsPerRun, 1), min_steps=bas.MinSteps)
-    map_state = apply_ba_results(map_state, window, st.poses, st.points, outliers,
-                                 fes.NumLevels, fes.ScaleFactor)
-    return map_state, mse
+    new_map = apply_ba_results(map_state, window, st.poses, st.points, outliers,
+                               fes.NumLevels, fes.ScaleFactor)
+    if capture is not None:
+        capture({"poses_in": map_state.kf_pose, "points_in": map_state.mp_pos,
+                 "obs_kf": window.obs_kf, "pt_slot": window.pt_slot},
+                {"poses_out": new_map.kf_pose, "points_out": new_map.mp_pos,
+                 "outliers": outliers, "mse": mse})
+    return new_map, mse

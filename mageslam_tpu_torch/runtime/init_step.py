@@ -120,7 +120,10 @@ def _attempt(sess, feats: FrameFeatures, timestamp: float, frame_id: int):
             min_pct=ms.MinThirdFrameMatchPercentage, max_err=ms.ExtraFrame_MaxOutlierError,
             ba_iters=ms.ExtraFrame_BundleAdjustmentSteps,
             max_hamming=extra.MaxHammingDistance, min_diff=extra.MinHammingDifference))
-    return adopt(sess, res, feats, timestamp, frame_id) if ok else None
+    if not ok:
+        return None
+    sess._det_check("Init.Accepted", res.pose2, res.point_valid, res.points)
+    return adopt(sess, res, feats, timestamp, frame_id)
 
 
 def adopt(sess, res: InitResult, feats: FrameFeatures, timestamp: float,
@@ -181,6 +184,9 @@ def adopt(sess, res: InitResult, feats: FrameFeatures, timestamp: float,
     bow = compute_idf(bow, pool_desc, pool_valid)
     bow = add_keyframe(bow, 0, prev.desc, prev.valid)
     sess.bow = add_keyframe(bow, 1, feats.desc, feats.valid)
+    sess._det_check("Init.Adopt.Map", sess.map.kf_pose, sess.map.kf_valid,
+                    sess.map.mp_valid, sess.map.mp_pos)
+    sess._det_check("Init.Adopt.Bow", sess.bow.anchors, sess.bow.idf)
 
     # the adoption's one host read: map scale (the two keyframes' baseline)
     # and the second keyframe's associated count

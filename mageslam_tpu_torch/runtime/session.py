@@ -65,6 +65,17 @@ deferred loop detection of the chunk path live in runtime/streaming.py
 (`StreamEntryPoints`, a mixin of this class); they run the gated step of
 runtime/frame_step.py. io/snapshot.py writes and reads the session on disk
 in the reference's format.
+
+Diagnostics (mageslam_tpu_torch/diagnostics): a session takes `metrics`
+(MetricChannels), `introspection` (Introspection), `determinator`
+(Determinator) and `xray` (XRay, or `attach_xray`). The Determinator hashes
+the reference's named checkpoints (Init.*, TrackLocalMap.*, Post.*,
+Mapping.*, Reloc.Result, LoopClosure.*, Stream.Chunk, Fossilize.Trajectory)
+at the same points of a frame with the same trees; on the chunk path the
+summary's last column then carries each frame's state digest
+(ops/digest.py). The xray captures the global BA ("GlobalBA") and loop
+detection ("LoopClosure.Detect"). With none attached the hooks read nothing
+from the device and launch nothing.
 """
 
 from __future__ import annotations
@@ -136,7 +147,14 @@ class SlamSession(StreamEntryPoints):
 
     def __init__(self, settings=None, cam=None, image_width: int = 320,
                  image_height: int = 180, device="cuda", seed: int = 0, draws=None,
-                 camera=None):
+                 camera=None, metrics=None, introspection=None, determinator=None,
+                 xray=None):
+        # optional diagnostics (pipeline.py:101-110); None keeps the frame
+        # loop free of host reads, as the reference's release macros
+        self.metrics = metrics
+        self.introspection = introspection
+        self.determinator = determinator
+        self.xray = xray
         self.settings = settings or golden_path_settings()
         b = self.settings.Budgets
         self.fes = self.settings.MonoSettings.MonoCamera.FeatureExtractorSettings
@@ -207,13 +225,17 @@ class SlamSession(StreamEntryPoints):
     @classmethod
     def from_jax_snapshot(cls, path: str, settings=None, cam=None,
                           image_width: int = 320, image_height: int = 180,
-                          device="cuda", seed: int = 0, draws=None) -> "SlamSession":
+                          device="cuda", seed: int = 0, draws=None,
+                          **diagnostics) -> "SlamSession":
         """A session holding the state that the JAX package's
         `save_session_snapshot` wrote (same settings and image size),
         bag-of-words index included. The file holds no vocabulary training
         pool: an initialized session counts as retrained (the reference
-        retrains once, TrainingFrames frames into the session)."""
-        sess = cls(settings, cam, image_width, image_height, device, seed, draws)
+        retrains once, TrainingFrames frames into the session).
+        `diagnostics`: the constructor's metrics, introspection,
+        determinator and xray."""
+        sess = cls(settings, cam, image_width, image_height, device, seed, draws,
+                   **diagnostics)
         sess.map, sess.history, sess.pose_history, meta, bow = load_jax_snapshot(
             path, sess.device)
         if bow is not None:
@@ -359,6 +381,24 @@ class SlamSession(StreamEntryPoints):
         self.results.append(result)
         return result
 
+    def _det_check(self, name: str, *trees) -> None:
+        """DETERMINISTIC_CHECK site (arcana/analysis/determinator.h:16-61;
+        pipeline.py:604-613): hashes `trees` into the attached Determinator.
+        Without one, nothing is read from the device."""
+        if self.determinator is not None:
+            self.determinator.check(name, *trees)
+
+    def attach_xray(self, xray) -> None:
+        """Attach a diagnostics.XRay stage I/O recorder (pipeline.py:615-619);
+        the wired sites capture from the next call on."""
+        self.xray = xray
+
+    def _xray_capture(self, stage: str, inputs, outputs) -> None:
+        """XRAY_BEGINTRACE/UPDATETRACE site (arcana/analysis/xray.h:28-43;
+        pipeline.py:621-627). Without an XRay, nothing is read."""
+        if self.xray is not None and self.xray.wants(stage):
+            self.xray.capture(stage, inputs, outputs)
+
     def _pose(self, pose: Pose) -> Pose:
         return Pose(torch.as_tensor(pose.R, dtype=torch.float32, device=self.device),
                     torch.as_tensor(pose.t, dtype=torch.float32, device=self.device))
@@ -432,14 +472,36 @@ class SlamSession(StreamEntryPoints):
         self.lost_count = 0
         self.frames_since_keyframe += 1
         self.frames_since_reloc += 1
+        # the diagnostics sites of pipeline.py:1741-1776
+        if self.metrics is not None:
+            self.metrics.fire("TrackLocalMap.NumMatchedKeypoints", frame_id, tracked)
+        self._det_check("TrackLocalMap.Pose", frame.pose)
+        self._det_check("TrackLocalMap.Associations", frame.assoc, res.tracked_count)
+        self._det_check("TrackLocalMap.Scoring", res.found_delta, res.predicted_delta)
+        if self.introspection is not None:
+            self.introspection.log_pose(3, frame_id, frame.pose)
         self.map, self.history, self.pose_history, is_kf_dev = post_step(
             self.settings, self.width, self.height, self.map, self.history,
             self.pose_history, frame, res.found_delta, res.predicted_delta,
             self._scalar(self.frames_since_keyframe, torch.int32),
             self._scalar(min(self.frames_since_reloc, 10_000), torch.int32))
         is_kf = bool(is_kf_dev)
+        self._det_check("Post.History", self.history.poses, self.history.valid)
+        self._det_check("Post.KeyframeDecision", is_kf_dev)
         if is_kf:
             self._insert_keyframe_and_map(frame)
+            self._det_check("Mapping.Map", self.map.kf_valid, self.map.mp_valid,
+                            self.map.kf_assoc)
+            self._det_check("Mapping.Poses", self.map.kf_pose, self.map.mp_pos)
+            self._det_check("Mapping.PoseHistory", self.pose_history.conn_kf,
+                            self.pose_history.conn_ok)
+            if self.metrics is not None:
+                self.metrics.fire("Mappoints.Total", frame_id,
+                                  int(torch.sum(self.map.mp_valid)))
+            if self.introspection is not None:
+                self.introspection.log_map_stats(
+                    frame_id, int(torch.sum(self.map.kf_valid)),
+                    int(torch.sum(self.map.mp_valid)))
         return FrameResult(frame_id, TrackingState.TRACKING, frame.pose, tracked,
                            is_kf)
 
@@ -450,6 +512,7 @@ class SlamSession(StreamEntryPoints):
         draws = self.draws.gumbel("reloc", (C, RELOC_HYPOTHESES, self.N))
         res = reloc_step(self.settings, self.width, self.height, self.map, self.bow,
                          self._frame(feats, timestamp, frame_id), draws)
+        self._det_check("Reloc.Result", res.succeeded, res.frame.pose)
         succeeded, tracked = torch.stack(
             [res.succeeded.to(torch.int32), res.tracked_count]).tolist()
         if not succeeded:
@@ -498,12 +561,23 @@ class SlamSession(StreamEntryPoints):
         self.bow = bow._replace(kf_has=bow.kf_has & self.map.kf_valid)
         if not lc.EnableLoopClosure:
             return False
+        # below MinKeyframe keyframes nothing can be detected: the detection
+        # is a constant, made only where it is queued or diagnosed
+        below = n_kf_bound is not None and n_kf_bound < lc.MinKeyframe
+        if below and not defer and self.determinator is None and self.xray is None:
+            return False
+        det, qualified = (self._no_detection(), False) if below else \
+            self._detect(frame, ki, slot_ok)
+        if self.xray is not None and self.xray.wants("LoopClosure.Detect"):
+            # the reference's descriptor words are uint32
+            self.xray.capture("LoopClosure.Detect", {
+                "frame": frame._replace(desc=frame.desc.cpu().numpy().view(np.uint32)),
+                "ki": ki, "frame_id": int(frame.frame_id)}, det)
         if defer:
-            self._defer_detection(frame, ki, slot_ok, n_kf_bound)
+            self._pending_loop_dets.append((det, frame, ki, int(frame.frame_id)))
+            self.loop_det_stats["deferred"] += 1
             return False
-        if n_kf_bound is not None and n_kf_bound < lc.MinKeyframe:
-            return False
-        det, qualified = self._detect(frame, ki, slot_ok)
+        self._det_check("LoopClosure.Detect", det.detected, det.scale, det.cluster_mask)
         if not qualified or not bool(det.detected):
             return False
         self._apply_loop_closure(det, frame, ki)
@@ -521,8 +595,10 @@ class SlamSession(StreamEntryPoints):
                               essential_graph_iters=lc.EssentialGraphIterations)
         self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot,
                                 steps=max(bas.NumSteps, 5), huber=bas.HuberWidth,
-                                max_outlier_error=bas.MaxOutlierError, bas=bas)
+                                max_outlier_error=bas.MaxOutlierError, bas=bas,
+                                capture=self._global_ba_capture())
         self.map = refresh_membership(self.map)
+        self._det_check("LoopClosure.Close", self.map.kf_pose, self.map.mp_pos)
         self.n_loops_closed += 1
         return True
 
@@ -573,8 +649,18 @@ class SlamSession(StreamEntryPoints):
         steps = global_ba_steps if global_ba_steps is not None else \
             self.settings.GraphOptimizationSettings.NumSteps
         if self.initialized and steps > 0:
-            self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot, steps)
-        return FossilizedMap(self.map, self.pose_history, self.fes).trajectory()
+            self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot, steps,
+                                    capture=self._global_ba_capture())
+        ids, mats = FossilizedMap(self.map, self.pose_history, self.fes).trajectory()
+        self._det_check("Fossilize.Trajectory", ids, mats)
+        return ids, mats
+
+    def _global_ba_capture(self):
+        """The "GlobalBA" xray site (pipeline.py:2351-2356) as `global_ba`'s
+        capture callback, or None."""
+        if self.xray is None or not self.xray.wants("GlobalBA"):
+            return None
+        return lambda inputs, outputs: self.xray.capture("GlobalBA", inputs, outputs)
 
     # the state the frame loop changes; settings, calibration and the
     # session's draw source itself are not part of a snapshot

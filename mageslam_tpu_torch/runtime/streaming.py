@@ -45,16 +45,18 @@ import numpy as np
 import torch
 
 from ..geometry.se3 import Pose
+from ..ops.digest import state_digest
 from ..ops.frontend import detect_and_compute
 from ..tracking.relocalization import RELOC_HYPOTHESES
 from .frame_step import gated_step, prepare_image
 from .loop_closure import LoopDetection, detect_loop
 from .mapping_step import mapping
 
-# the chunk summary's columns, one row a frame (pipeline.py:1202-1219; the
-# reference's state-digest column feeds its diagnostics, not ported)
+# the chunk summary's columns, one row a frame (pipeline.py:1221-1239); the
+# state digest (ops/digest.py) is 0 unless a Determinator is attached
 SUMMARY_COLUMNS = ("ok", "tracked", "accepted", *(f"R{i}" for i in range(9)),
-                   "t0", "t1", "t2", "ki", "frames_since_keyframe", "keyframes", "points")
+                   "t0", "t1", "t2", "ki", "frames_since_keyframe", "keyframes", "points",
+                   "digest")
 _COL = {name: i for i, name in enumerate(SUMMARY_COLUMNS)}
 # the deferred-detection counters (pipeline.py:217-233), beside the per-frame
 # path's live / qualified / closed
@@ -70,7 +72,7 @@ class StreamEntryPoints:
     def _init_streaming(self) -> None:
         self._pending: list = []          # (frame, outcome (3,), frame id, event)
         self._pipeline_depth = self.settings.MappingSettings.MaxPendingKeyframes
-        self._pending_chunks: list = []   # (frames, summary (C, 19), frame ids)
+        self._pending_chunks: list = []   # (frames, summary (C, 20), frame ids)
         self._dev_counters = None         # (frames_since_keyframe, _reloc) on the device
         self._pending_loop_dets: list = []   # (LoopDetection, frame, slot, frame id)
         # chunks in flight before their summaries are read (bench.py sets 4)
@@ -78,6 +80,9 @@ class StreamEntryPoints:
         # the newest mapping step's keyframe count: an upper bound of the
         # map's until the next mapping (None: unknown)
         self._kf_bound = None
+        # the summary's digest column without a Determinator, made once so
+        # that a row costs no launch more
+        self._zero_col = torch.zeros((1,), dtype=torch.float32, device=self.device)
 
     def _lost(self) -> bool:
         return (not self.initialized or self.lost_count >=
@@ -221,14 +226,21 @@ class StreamEntryPoints:
         accepted = ki >= 0
         fsk = torch.where(gate, torch.zeros_like(fsk) if accepted else fsk + 1, fsk)
         fsr = torch.where(gate, torch.clamp_max(fsr + 1, 10_000), fsr)
+        m = self.map
+        if self.determinator is None:
+            digest = self._zero_col
+        else:
+            # the post-frame state digest (pipeline.py:1187-1217)
+            digest = state_digest(m.mp_pos, m.kf_pose.t, m.mp_valid, m.kf_valid, fsk)
         row = torch.cat([
             out.flags[:2].to(torch.float32),
             torch.tensor([float(accepted)], device=self.device),
             out.frame.pose.R.reshape(9), out.frame.pose.t,
             torch.tensor([float(ki)], device=self.device),
             fsk.to(torch.float32)[None],
-            torch.stack([torch.sum(self.map.kf_valid.to(torch.int32)),
-                         torch.sum(self.map.mp_valid.to(torch.int32))]).to(torch.float32)])
+            torch.stack([torch.sum(m.kf_valid.to(torch.int32)),
+                         torch.sum(m.mp_valid.to(torch.int32))]).to(torch.float32),
+            digest])
         return out.frame, row, fsk, fsr
 
     def _dispatch_chunk(self, images, timestamps, frame_ids) -> None:
@@ -328,6 +340,9 @@ class StreamEntryPoints:
             self._resolve_loop_dets(flags=flat[offs:])
         results = []
         for (frames, _, frame_ids), s in zip(batch, summaries):
+            # the stream path's DETERMINISTIC_CHECK: the whole summary, on
+            # the host already (pipeline.py:1578-1582)
+            self._det_check("Stream.Chunk", np.ascontiguousarray(s))
             if not self.bow_training.retrained:
                 self.bow_training.add(self, torch.stack([f.desc for f in frames]),
                                       torch.stack([f.kp_valid for f in frames]),
@@ -377,19 +392,12 @@ class StreamEntryPoints:
         self.loop_det_stats["qualified"] += int(qualified)
         return det._replace(detected=det.detected & slot_ok), qualified
 
-    def _defer_detection(self, frame, ki: int, slot_ok, n_kf_bound) -> None:
-        """Queue keyframe `ki`'s detection, its flag to be read with the next
-        chunk summaries (pipeline.py:2462-2465). Below MinKeyframe keyframes
-        (by the newest mapping's count) nothing can be detected and the
-        queued flag is a constant false."""
-        if n_kf_bound is not None and n_kf_bound < self.settings.LoopClosureSettings.MinKeyframe:
-            det = LoopDetection(
-                detected=torch.zeros((), dtype=torch.bool, device=self.device), reloc_pose=None,
-                reloc_assoc=None, scale=None, cluster_mask=torch.zeros_like(self.map.kf_valid))
-        else:
-            det, _ = self._detect(frame, ki, slot_ok)
-        self._pending_loop_dets.append((det, frame, ki, int(frame.frame_id)))
-        self.loop_det_stats["deferred"] += 1
+    def _no_detection(self) -> LoopDetection:
+        """The detection below MinKeyframe keyframes (by the newest mapping's
+        count), where nothing can be detected: a constant false."""
+        return LoopDetection(
+            detected=torch.zeros((), dtype=torch.bool, device=self.device), reloc_pose=None,
+            reloc_assoc=None, scale=None, cluster_mask=torch.zeros_like(self.map.kf_valid))
 
     def _resolve_loop_dets(self, flags=None) -> None:
         """Resolve the queued detections (pipeline.py:2506-2570); `flags` are
@@ -406,6 +414,7 @@ class StreamEntryPoints:
             flags = torch.stack([d.detected for d, *_ in dets]).to(torch.float32).cpu().numpy()
         stats = self.loop_det_stats
         for idx, ((det, frame, ki, fid), hit) in enumerate(zip(dets, flags)):
+            self._det_check("LoopClosure.Detect", det.detected, det.scale, det.cluster_mask)
             stats["resolved"] += 1
             if not hit > 0:
                 continue

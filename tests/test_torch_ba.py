@@ -1,7 +1,11 @@
 """The port's bundle adjustment (ba/residuals, schur, step; worldmap/ba_window)
-against the JAX package on seeded numpy problems. The problems are built by
-the JAX package (a window of the small scene of tests/test_torch_worldmap.py,
-or a synthetic problem with tethers) and cross as numpy arrays.
+against the JAX package on seeded problems: a window of the small scene of
+tests/test_torch_worldmap.py, and a synthetic problem with tethers. The
+JAX package's problems and its outputs on them are committed in
+tests/data/torch_port_ba.npz (`python tools/export_jax_state.py ba`, which
+computes them as this file did live: the residuals, `project_obs` and the
+LM iteration jitted as the JAX pipeline runs them, the normal equations
+eager apart from the jitted tether residuals, the rest eager).
 
 Tolerances: residuals and Jacobians atol 1e-4 relative to pixel-scale values
 of up to a few hundred; the normal equations agree to a relative 1e-5 of
@@ -15,147 +19,88 @@ integer output are equal."""
 
 import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from mageslam_tpu.ba import problem as jproblem
-from mageslam_tpu.ba import residuals as jres
-from mageslam_tpu.ba import schur as jschur
-from mageslam_tpu.ba import step as jstep
-from mageslam_tpu.geometry.se3 import Pose as JPose
-from mageslam_tpu.geometry.se3 import exp_so3 as jexp_so3
-from mageslam_tpu.geometry.se3 import retract as jretract
-from mageslam_tpu.worldmap import ba_window as jwin
-from mageslam_tpu.worldmap import member_index as jmi
 from mageslam_tpu_torch import interop
 from mageslam_tpu_torch.ba import problem, residuals, schur, step
+from mageslam_tpu_torch.geometry.se3 import Pose
 from mageslam_tpu_torch.worldmap import ba_window
-from test_torch_worldmap import LEVELS, SCALE, T, assert_same, build_scene, to_torch
+from mageslam_tpu_torch.worldmap.map_state import MapState
 
 # the suite runs several worker processes on few cores: a small thread pool
 # each costs less than the default of one thread a core
 torch.set_num_threads(2)
 
-# The JAX references, jitted as the JAX package's own pipeline runs them:
-# one compile each, where eager dispatch compiled and ran each of their
-# hundreds of small operations (the tether Jacobians' vmap of jacfwd alone
-# took most of this file's time).
-j_observation_residuals = jax.jit(jres.observation_residuals)
-j_tether_residuals = jax.jit(jres.tether_residuals)
-j_project_obs = jax.jit(jres.project_obs)
-j_lm_iteration = jax.jit(jschur.lm_iteration)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_ba.npz")
+LEVELS, SCALE = 3, 1.2       # tests/test_torch_worldmap.py's pyramid
+WINDOW_KW = dict(max_cams=8, max_points=128, max_obs=256, theta0=5, theta_min=5,
+                 upper_connections=2000, lower_connections=50)
+WINDOW_FIELDS = ("cam_slot", "pt_slot", "obs_kf", "obs_feat", "theta")
 
 
-def problem_to_torch(p) -> problem.BAProblem:
-    leaves = {f"s{i}": np.asarray(x) for i, x in enumerate(jax.tree.flatten(p[:-1])[0])}
-    fields = interop.unflatten(problem.BAProblem, "s", leaves, "cpu")
-    return fields._replace(points_fixed=bool(p.points_fixed))
+@pytest.fixture(scope="module")
+def ref():
+    with np.load(FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def T(a):
+    return torch.from_numpy(np.asarray(a).copy())
 
 
 def close(got, want, atol, name=""):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol, err_msg=name)
 
 
-def perturbed_scene(seed=0, noise=0.0):
-    """The small scene with keyframe 4's pose and every point knocked off
-    the truth, and `noise` pixels on the observations. Keyframes 0 and 1 are
-    fixed, which pins the scale: with one fixed camera the monocular problem
-    keeps a gauge direction along which two float32 solvers drift apart."""
-    m, _, _ = build_scene(seed)
-    m = m._replace(kf_fixed=m.kf_fixed.at[1].set(True))
-    rng = np.random.RandomState(seed + 100)
-    bad = jretract(JPose(m.kf_pose.R[4], m.kf_pose.t[4]),
-                   jnp.asarray([0.02, -0.01, 0.015, 0.008, -0.006, 0.004], jnp.float32))
-    return m._replace(
-        kf_pose=JPose(m.kf_pose.R.at[4].set(bad.R), m.kf_pose.t.at[4].set(bad.t)),
-        mp_pos=m.mp_pos + jnp.asarray(rng.randn(*m.mp_pos.shape).astype(np.float32) * 0.01),
-        kf_kp_xy=m.kf_kp_xy + jnp.asarray(
-            rng.randn(*m.kf_kp_xy.shape).astype(np.float32) * noise))
-
-
-WINDOW_KW = dict(max_cams=8, max_points=128, max_obs=256, theta0=5, theta_min=5,
-                 upper_connections=2000, lower_connections=50)
+def stored_problem(ref, w: str) -> problem.BAProblem:
+    """The JAX problem `{w}_p{i}` (and `{w}_points_fixed`) as the port's."""
+    p = interop.unflatten(problem.BAProblem, f"{w}_p", ref, "cpu")
+    return p._replace(points_fixed=bool(ref.get(f"{w}_points_fixed", False)))
 
 
 @pytest.fixture(scope="module")
-def window():
-    m = perturbed_scene(noise=0.3)
-    w = jwin.build_local_ba_window(m, jnp.int32(4), **WINDOW_KW)
-    return {"map": m, "jax": w, "problem": problem_to_torch(w.problem)}
-
-
-def tether_problem(seed=0, K=6, Pn=40, O=160, Tn=5):
-    """A synthetic problem with all three tether kinds (and one invalid)."""
-    rng = np.random.RandomState(seed)
-    p = jproblem.empty_problem(K, Pn, O, n_tethers=Tn)
-    R = np.asarray(jexp_so3(jnp.asarray(rng.randn(K, 3).astype(np.float32) * 0.05)))
-    t = np.concatenate([rng.randn(K, 2) * 0.4, np.zeros((K, 1))], 1).astype(np.float32)
-    pts = np.stack([rng.uniform(-1, 1, Pn), rng.uniform(-1, 1, Pn), rng.uniform(4, 7, Pn)],
-                   1).astype(np.float32)
-    oc, op = rng.randint(0, K, O).astype(np.int32), rng.randint(0, Pn, O).astype(np.int32)
-    Xc = np.einsum("oij,oj->oi", R[oc], pts[op]) + t[oc]
-    uv = (300 * Xc[:, :2] / Xc[:, 2:3] + [160, 120] + rng.randn(O, 2)).astype(np.float32)
-    info = np.where(rng.rand(O) < 0.9, rng.uniform(0.5, 1, O), 0).astype(np.float32)
-    c1, c2 = rng.randint(0, K, Tn).astype(np.int32), rng.randint(0, K, Tn).astype(np.int32)
-    c2 = np.where(c1 == c2, (c2 + 1) % K, c2).astype(np.int32)
-    dR = np.asarray(jexp_so3(jnp.asarray(rng.randn(Tn, 3).astype(np.float32) * 0.1)))
-    return p._replace(
-        poses=JPose(jnp.asarray(R), jnp.asarray(t)),
-        intrinsics=jnp.tile(jnp.asarray([[300.0, 300.0, 160.0, 120.0]]), (K, 1)),
-        cam_fixed=jnp.arange(K) < 2, cam_valid=jnp.arange(K) < K - 1,
-        points=jnp.asarray(pts), pt_valid=jnp.arange(Pn) < Pn - 2,
-        obs_cam=jnp.asarray(oc), obs_pt=jnp.asarray(op), obs_uv=jnp.asarray(uv),
-        obs_info=jnp.asarray(info),
-        tether_kind=jnp.asarray(np.arange(Tn) % 3, jnp.int32),
-        tether_cam1=jnp.asarray(c1), tether_cam2=jnp.asarray(c2),
-        tether_pose=JPose(jnp.asarray(dR), jnp.asarray(rng.randn(Tn, 3).astype(np.float32) * 0.3)),
-        tether_distance=jnp.asarray(rng.uniform(0.2, 1, Tn).astype(np.float32)),
-        tether_weight=jnp.asarray(np.where(np.arange(Tn) == Tn - 1, 0, 2.0).astype(np.float32)))
+def window(ref):
+    return {"map": interop.unflatten(MapState, "win_map", ref, "cpu"),
+            "problem": stored_problem(ref, "win"), "name": "window"}
 
 
 @pytest.fixture(scope="module")
-def tethered():
-    p = tether_problem()
-    return {"jax": p, "torch": problem_to_torch(p)}
+def tethered(ref):
+    return {"problem": stored_problem(ref, "teth"), "name": "tethered"}
 
 
-def both(fixture):
-    if "problem" in fixture:
-        return fixture["jax"].problem, fixture["problem"]
-    return fixture["jax"], fixture["torch"]
+def state_fields(ref, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in ref.items() if k.startswith(prefix + "_")}
 
 
 # ---- residuals ----------------------------------------------------------- #
 @pytest.mark.parametrize("which", ["window", "tethered"])
 @pytest.mark.parametrize("huber", [0.0, 1.5])
-def test_observation_residuals(request, which, huber):
-    jp, tp = both(request.getfixturevalue(which))
+def test_observation_residuals(request, ref, which, huber):
+    tp = request.getfixturevalue(which)["problem"]
+    pre = f"obs_{which}_{huber}"
     got = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, huber)
-    want = j_observation_residuals(jp, jp.poses, jp.points, jp.obs_info, jnp.float32(huber))
     for name in got._fields:
         # Jacobian entries reach a few hundred: 1e-4 is a relative 1e-6
-        close(getattr(got, name), getattr(want, name), 1e-4, name)
-    np.testing.assert_array_equal(residuals.behind_camera(got).numpy(),
-                                  np.asarray(jres.behind_camera(want)))
+        close(getattr(got, name), ref[f"{pre}_{name}"], 1e-4, name)
+    np.testing.assert_array_equal(residuals.behind_camera(got).numpy(), ref[f"{pre}_behind"])
     cost = residuals.robust_cost(got.chi2, huber, got.w)
-    jcost = jres.robust_cost(want.chi2, jnp.float32(huber), want.w)
-    np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-5)
+    np.testing.assert_allclose(float(cost), float(ref[f"{pre}_cost"]), rtol=1e-5)
     uv, Xc = residuals.project_obs(tp.poses, tp.intrinsics, tp.points, tp.obs_cam, tp.obs_pt)
-    juv, jXc = j_project_obs(jp.poses, jp.intrinsics, jp.points, jp.obs_cam, jp.obs_pt)
-    close(uv, juv, 1e-4)
-    close(Xc, jXc, 1e-5)
+    close(uv, ref[f"proj_{which}_uv"], 1e-4)
+    close(Xc, ref[f"proj_{which}_Xc"], 1e-5)
 
 
-def test_tether_residuals(tethered):
-    jp, tp = both(tethered)
+def test_tether_residuals(ref, tethered):
+    tp = tethered["problem"]
     got = residuals.tether_residuals(tp, tp.poses)
-    want = j_tether_residuals(jp, jp.poses)
     for name in got._fields:
-        close(getattr(got, name), getattr(want, name), 1e-5, name)
+        close(getattr(got, name), ref[f"teth_{name}"], 1e-5, name)
     assert float(got.chi2.sum()) > 0 and float(got.w[-1]) == 0
     no_jac = residuals.tether_residuals(tp, tp.poses, jacobians=False)
     torch.testing.assert_close(no_jac.chi2, got.chi2)
@@ -165,31 +110,19 @@ def test_tether_residuals(tethered):
 
 
 # ---- normal equations and the solve -------------------------------------- #
-def _equations(fixture, huber=1.5):
-    """Both sides' normal equations of a fixture's problem, made once a
-    fixture. The solve tests take the JAX side's as their input, so its
-    observation residuals and equations stay eager, as the solves'
-    tolerances were set on them (jitted, one dx_p entry moves past 2e-4)."""
-    key = (id(fixture), huber)
-    if key not in _EQUATIONS:
-        jp, tp = both(fixture)
-        tobs = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, huber)
-        jobs = jres.observation_residuals(jp, jp.poses, jp.points, jp.obs_info,
-                                          jnp.float32(huber))
-        teq = schur.build_normal_equations(tp, tobs, residuals.tether_residuals(tp, tp.poses))
-        jeq = jschur.build_normal_equations(jp, jobs, j_tether_residuals(jp, jp.poses))
-        _EQUATIONS[key] = (jp, tp, jeq, teq)
-    return _EQUATIONS[key]
-
-
-_EQUATIONS: dict = {}
+def jax_equations(ref, which: str) -> schur.NormalEquations:
+    """The JAX side's normal equations at huber 1.5 (the solves' input)."""
+    return schur.NormalEquations(*(T(ref[f"eq_{which}_{f}"])
+                                   for f in schur.NormalEquations._fields))
 
 
 @pytest.mark.parametrize("which", ["window", "tethered"])
-def test_normal_equations(request, which):
-    _, _, jeq, teq = _equations(request.getfixturevalue(which))
+def test_normal_equations(request, ref, which):
+    tp = request.getfixturevalue(which)["problem"]
+    tobs = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, 1.5)
+    teq = schur.build_normal_equations(tp, tobs, residuals.tether_residuals(tp, tp.poses))
     for name in teq._fields:
-        want = np.asarray(getattr(jeq, name))
+        want = ref[f"eq_{which}_{name}"]
         close(getattr(teq, name), want, 1e-5 * max(np.abs(want).max(), 1.0), name)
     assert float(teq.H_cc.abs().max()) > 1e3
 
@@ -219,8 +152,7 @@ def test_add_at_sums_in_index_order(rest):
 
 
 def test_points_fixed_zeroes_the_point_blocks(window):
-    jp, tp = both(window)
-    tp = tp._replace(points_fixed=True)
+    tp = window["problem"]._replace(points_fixed=True)
     obs = residuals.observation_residuals(tp, tp.poses, tp.points, tp.obs_info, 0.0)
     eq = schur.build_normal_equations(tp, obs, residuals.tether_residuals(tp, tp.poses))
     assert not eq.V.any() and not eq.Wc.any() and not eq.g_p.any() and eq.H_cc.any()
@@ -228,140 +160,123 @@ def test_points_fixed_zeroes_the_point_blocks(window):
 
 @pytest.mark.parametrize("which", ["window", "tethered"])
 @pytest.mark.parametrize("lam", [1.0, 10.0])
-def test_solve_lm_system(request, which, lam):
+def test_solve_lm_system(request, ref, which, lam):
     # lambda as the LM loop sets it, 1e-5 of the largest diagonal entry (1e5
     # to 1e6 here) and its first updates. Far below that, S = H_cc - W V^-1
     # W^T cancels in float32 and no two solvers agree.
-    jp, tp, jeq, _ = _equations(request.getfixturevalue(which))
+    tp = request.getfixturevalue(which)["problem"]
     # the same equations on both sides: the solve alone
-    teq = schur.NormalEquations(*(T(x) for x in jeq))
-    dx_c, dx_p = schur.solve_lm_system(tp, teq, torch.tensor(lam))
-    jdx_c, jdx_p = jschur.solve_lm_system(jp, jeq, jnp.float32(lam))
-    close(dx_c, jdx_c, 2e-4, "dx_c")
-    close(dx_p, jdx_p, 2e-4, "dx_p")
-    frozen = np.asarray(jp.cam_fixed | ~jp.cam_valid)
+    dx_c, dx_p = schur.solve_lm_system(tp, jax_equations(ref, which), torch.tensor(lam))
+    close(dx_c, ref[f"solve_{which}_{lam}_dx_c"], 2e-4, "dx_c")
+    close(dx_p, ref[f"solve_{which}_{lam}_dx_p"], 2e-4, "dx_p")
+    frozen = (tp.cam_fixed | ~tp.cam_valid).numpy()
     assert not dx_c[torch.from_numpy(frozen)].any() and dx_c.any()
 
 
-def test_solve_takes_the_lu_path_when_cholesky_fails(window):
-    jp, tp, jeq, _ = _equations(window)
+def test_solve_takes_the_lu_path_when_cholesky_fails(ref, window):
+    tp = window["problem"]
     # a negative damping makes S indefinite: Cholesky fails, LU answers
-    teq = schur.NormalEquations(*(T(x) for x in jeq))
-    dx_c, dx_p = schur.solve_lm_system(tp, teq, torch.tensor(-50.0))
+    dx_c, dx_p = schur.solve_lm_system(tp, jax_equations(ref, "window"), torch.tensor(-50.0))
     assert torch.isfinite(dx_c).all() and torch.isfinite(dx_p).all()
-    jdx_c, _ = jschur.solve_lm_system(jp, jeq, jnp.float32(-50.0))
-    scale = max(float(jnp.abs(jdx_c).max()), 1.0)
+    jdx_c = ref["solve_window_-50.0_dx_c"]
+    scale = max(float(np.abs(jdx_c).max()), 1.0)
     close(dx_c, jdx_c, 2e-3 * scale, "dx_c")
 
 
-def _states(jp, tp, lam=-1.0):
-    return jproblem.BAState.from_problem(jp, lam), problem.BAState.from_problem(tp, lam)
-
-
 @pytest.mark.parametrize("which", ["window", "tethered"])
-def test_lm_iteration(request, which):
-    jp, tp = both(request.getfixturevalue(which))
-    jst, tst = _states(jp, tp)
-    for huber in (1.5, 0.0):                       # the second starts from lambda > 0
-        jr = j_lm_iteration(jp, jst, jnp.float32(huber))
+def test_lm_iteration(request, ref, which):
+    tp = request.getfixturevalue(which)["problem"]
+    tst = problem.BAState.from_problem(tp, -1.0)
+    for j, huber in enumerate((1.5, 0.0)):       # the second starts from lambda > 0
+        pre = f"lm_{which}_{j}"
+        jr = state_fields(ref, f"{pre}_state")
         tr = schur.lm_iteration(tp, tst, huber)
-        assert bool(tr.accepted) == bool(jr.accepted)
-        np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-3)
-        np.testing.assert_allclose(float(tr.state.lam), float(jr.state.lam), rtol=2e-2)
-        assert float(tr.state.ni) == float(jr.state.ni)
-        close(tr.state.poses.R, jr.state.poses.R, 1e-4)
-        close(tr.state.poses.t, jr.state.poses.t, 1e-4)
-        close(tr.state.points, jr.state.points, 1e-4)
-        jst, tst = jr.state, tr.state
+        assert bool(tr.accepted) == bool(ref[f"{pre}_accepted"])
+        np.testing.assert_allclose(float(tr.cost), float(ref[f"{pre}_cost"]), rtol=1e-3)
+        np.testing.assert_allclose(float(tr.state.lam), float(jr["lam"]), rtol=2e-2)
+        assert float(tr.state.ni) == float(jr["ni"])
+        close(tr.state.poses.R, jr["poses.R"], 1e-4)
+        close(tr.state.poses.t, jr["poses.t"], 1e-4)
+        close(tr.state.points, jr["points"], 1e-4)
+        tst = tr.state
 
 
 # ---- step_bundle_adjust --------------------------------------------------- #
-def test_step_bundle_adjust_noiseless_scene_recovers_the_truth():
-    truth, _, _ = build_scene()
-    m = perturbed_scene(noise=0.0)
-    # one gross outlier observation, and one point pushed behind its cameras
-    m = m._replace(kf_kp_xy=m.kf_kp_xy.at[3, 0].add(25.0))
-    w = jwin.build_local_ba_window(m, jnp.int32(4), **WINDOW_KW)
-    jp, tp = w.problem, problem_to_torch(w.problem)
-    jst, tst = _states(jp, tp)
-    widths = np.float32(1.5) * np.float32(0.9) ** np.arange(4, dtype=np.float32)
-    jst, jmse, jout = jstep.step_bundle_adjust(jp, jst, jnp.asarray(widths), jnp.float32(4.0))
-    tst, tmse, tout = step.step_bundle_adjust(tp, tst, T(widths), 4.0)
-    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+def test_step_bundle_adjust_noiseless_scene_recovers_the_truth(ref):
+    tp = stored_problem(ref, "nl")
+    tst = problem.BAState.from_problem(tp, -1.0)
+    jst = state_fields(ref, "nl_state")
+    tst, tmse, tout = step.step_bundle_adjust(tp, tst, T(ref["nl_widths"]), 4.0)
+    np.testing.assert_array_equal(tout.numpy(), ref["nl_out"])
     assert int(tout.sum()) == 1
-    np.testing.assert_allclose(float(tmse), float(jmse), rtol=0, atol=1e-4)
-    close(tst.poses.R, jst.poses.R, 1e-4)
-    close(tst.poses.t, jst.poses.t, 1e-4)
-    close(tst.points, jst.points, 5e-4)
-    close(tst.obs_info, jst.obs_info, 0)
+    np.testing.assert_allclose(float(tmse), float(ref["nl_mse"]), rtol=0, atol=1e-4)
+    close(tst.poses.R, jst["poses.R"], 1e-4)
+    close(tst.poses.t, jst["poses.t"], 1e-4)
+    close(tst.points, jst["points"], 5e-4)
+    close(tst.obs_info, jst["obs_info"], 0)
     # and keyframe 4 is pulled back toward the truth
-    cam4 = int(np.flatnonzero(np.asarray(w.cam_slot) == 4)[0])
-    before = np.abs(np.asarray(m.kf_pose.t[4]) - np.asarray(truth.kf_pose.t[4])).max()
-    after = np.abs(tst.poses.t[cam4].numpy() - np.asarray(truth.kf_pose.t[4])).max()
+    cam4 = int(np.flatnonzero(ref["nl_cam_slot"] == 4)[0])
+    before = np.abs(ref["nl_before_t4"] - ref["nl_truth_t4"]).max()
+    after = np.abs(tst.poses.t[cam4].numpy() - ref["nl_truth_t4"]).max()
     assert after < 0.75 * before
 
 
 def test_step_accepts_a_list_of_widths(window):
-    jp, tp = both(window)
-    _, tst = _states(jp, tp)
+    tp = window["problem"]
+    tst = problem.BAState.from_problem(tp, -1.0)
     a = step.step_bundle_adjust(tp, tst, [1.5, 1.2], 9.0)
     b = step.step_bundle_adjust(tp, tst, torch.tensor([1.5, 1.2]), 9.0)
     torch.testing.assert_close(a[0].points, b[0].points)
     assert torch.equal(a[2], b[2])
 
 
-def test_iterate_bundle_adjust(window):
-    jp, tp = both(window)
-    jst, tst = _states(jp, tp)
+def test_iterate_bundle_adjust(ref, window):
+    tp = window["problem"]
+    tst = problem.BAState.from_problem(tp, -1.0)
     kw = dict(huber_width=1.5, max_outlier_error=3.0, huber_width_scale=0.9,
               max_outlier_error_scale=0.9, min_mean_square_error=1e-9, num_steps=4,
               steps_per_run=2, min_steps=2)
-    jst, jmse, jsteps, jout = jstep.iterate_bundle_adjust(jp, jst, **kw)
     tst, tmse, tsteps, tout = step.iterate_bundle_adjust(tp, tst, **kw)
-    assert tsteps == jsteps == 4
-    np.testing.assert_allclose(tmse, jmse, rtol=1e-3)
-    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
-    close(tst.points, jst.points, 5e-4)
-    close(tst.poses.t, jst.poses.t, 5e-4)      # four steps on 0.3 px of noise
+    jst = state_fields(ref, "it_state")
+    assert tsteps == int(ref["it_steps"]) == 4
+    np.testing.assert_allclose(tmse, float(ref["it_mse"]), rtol=1e-3)
+    np.testing.assert_array_equal(tout.numpy(), ref["it_out"])
+    close(tst.points, jst["points"], 5e-4)
+    close(tst.poses.t, jst["poses.t"], 5e-4)      # four steps on 0.3 px of noise
 
 
 # ---- window build and write-back ----------------------------------------- #
-WINDOW_FIELDS = ("cam_slot", "pt_slot", "obs_kf", "obs_feat", "theta")
-
-
-def assert_window_equal(got, want):
+def assert_window_equal(got, ref, w: str):
     for f in WINDOW_FIELDS:
-        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), f)
-    jp, tp = want.problem, got.problem
-    for f in jp._fields[:-1]:
-        a, b = getattr(tp, f), getattr(jp, f)
-        for x, y in (zip(a, b) if isinstance(b, JPose) else [(a, b)]):
-            assert x.numpy().dtype == np.asarray(y).dtype, f
-            np.testing.assert_array_equal(x.numpy(), np.asarray(y), f)
+        np.testing.assert_array_equal(getattr(got, f).numpy(), ref[f"{w}_{f}"], f)
+    want = stored_problem(ref, w)
+    for f in want._fields[:-1]:
+        a, b = getattr(got.problem, f), getattr(want, f)
+        for x, y in (zip(a, b) if isinstance(b, Pose) else [(a, b)]):
+            assert x.numpy().dtype == y.numpy().dtype, f
+            np.testing.assert_array_equal(x.numpy(), y.numpy(), f)
 
 
-@pytest.mark.parametrize("kw", [
+@pytest.mark.parametrize("j,kw", list(enumerate([
     {},                                              # the whole covisible set fits
     {"max_cams": 3, "max_points": 50, "max_obs": 90},   # every bank overflows
     {"upper_connections": 120, "theta_step": 10, "theta_max_steps": 2},   # theta walks up
     {"theta0": 40, "lower_connections": 150, "theta_step": 10, "theta_max_steps": 2},  # down
     {"global_window": True},
-])
-def test_build_local_ba_window(window, kw):
+])), ids=["kw0", "kw1", "kw2", "kw3", "kw4"])
+def test_build_local_ba_window(ref, window, j, kw):
     m = window["map"]
     args = {**WINDOW_KW, **kw}
-    want = jwin.build_local_ba_window(m, jnp.int32(4), **args)
-    got = ba_window.build_local_ba_window(to_torch(m), torch.tensor(4), **args)
-    assert_window_equal(got, want)
-    member = jmi.build_fidx(m) >= 0
-    again = ba_window.build_local_ba_window(to_torch(m), torch.tensor(4), member=T(member),
-                                            **args)
-    assert_window_equal(again, want)
+    got = ba_window.build_local_ba_window(m, torch.tensor(4), **args)
+    assert_window_equal(got, ref, f"kw{j}")
+    member = T(ref["fidx"] >= 0)
+    again = ba_window.build_local_ba_window(m, torch.tensor(4), member=member, **args)
+    assert_window_equal(again, ref, f"kw{j}")
     assert int(got.problem.cam_valid.sum()) >= 2
 
 
 def test_window_without_tethers_is_the_same_problem(window):
-    m = to_torch(window["map"])
+    m = window["map"]
     full = ba_window.build_local_ba_window(m, torch.tensor(4), **WINDOW_KW)
     p = full.problem
     assert p.tether_weight.shape == m.tether_weight.shape and not p.tether_weight.any()
@@ -375,25 +290,34 @@ def test_window_without_tethers_is_the_same_problem(window):
     assert torch.equal(a[2], b[2])
 
 
+def assert_same(got, ref, prefix: str, atol=1e-5):
+    """Every leaf of the port's state `got` against the JAX state's leaves
+    `{prefix}{i}`."""
+    g = interop.to_numpy(got)
+    assert f"{prefix}{len(g)}" not in ref and f"{prefix}{len(g) - 1}" in ref
+    for i, (name, a) in enumerate(g.items()):
+        b = ref[f"{prefix}{i}"]
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
 @pytest.mark.parametrize("with_fidx", [False, True])
-def test_apply_ba_results(window, with_fidx):
-    m, w = window["map"], window["jax"]
-    jst = jproblem.BAState.from_problem(w.problem)
-    jst, _, jout = jstep.step_bundle_adjust(w.problem, jst, jnp.asarray([1.5, 1.2]),
-                                            jnp.float32(1.0))
+def test_apply_ba_results(ref, window, with_fidx):
+    m = window["map"]
     # the same optimized values on both sides: the write-back alone; enough
     # outliers that some points fall under two observers
-    out = np.asarray(jout) | (np.random.RandomState(0).rand(len(jout)) < 0.45)
-    jf = jmi.build_fidx(m) if with_fidx else None
-    want = jwin.apply_ba_results(m, w, jst.poses, jst.points, jnp.asarray(out), LEVELS, SCALE,
-                                 fidx=jf)
-    tw = ba_window.build_local_ba_window(to_torch(m), torch.tensor(4), **WINDOW_KW)
-    tposes = type(tw.problem.poses)(T(jst.poses.R), T(jst.poses.t))
-    got = ba_window.apply_ba_results(to_torch(m), tw, tposes, T(jst.points), T(out), LEVELS,
-                                     SCALE, fidx=T(jf) if with_fidx else None)
+    jst = state_fields(ref, "apply_state")
+    out = ref["apply_out"]
+    tw = ba_window.build_local_ba_window(m, torch.tensor(4), **WINDOW_KW)
+    tposes = Pose(T(jst["poses.R"]), T(jst["poses.t"]))
+    got = ba_window.apply_ba_results(m, tw, tposes, T(jst["points"]), T(out), LEVELS,
+                                     SCALE, fidx=T(ref["fidx"]) if with_fidx else None)
     if with_fidx:
-        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-        got, want = got[0], want[0]
-    assert_same(got, want)
-    assert int(got.mp_valid.sum()) < int(np.asarray(m.mp_valid).sum())
-    assert int(got.mp_refine_count.sum()) > int(np.asarray(m.mp_refine_count).sum())
+        np.testing.assert_array_equal(got[1].numpy(), ref["apply1_fidx"])
+        got = got[0]
+    assert_same(got, ref, f"apply{int(with_fidx)}_map")
+    assert int(got.mp_valid.sum()) < int(m.mp_valid.sum())
+    assert int(got.mp_refine_count.sum()) > int(m.mp_refine_count.sum())

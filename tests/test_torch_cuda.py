@@ -10,7 +10,9 @@ visual-inertial path: the fuser's float32 products, its three filters
 replayed on the JAX run's inputs, the VI session's first 26 frames and the
 fossilized map's queries; and the throughput and realtime entry points:
 the stream and pipelined calls against JAX's, the realtime gate, a disk
-snapshot continued on the card.
+snapshot continued on the card; and the diagnostics: the state digest
+kernel against its plain version and JAX's column, and a Determinator
+replay of the stream on the card.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -856,3 +858,73 @@ def test_disk_snapshot_on_the_card_continues_the_run(cuda_device, tmp_path):
     for a, b in ((sess.map, cpu.map), (sess.bow, cpu.bow)):     # the state saved
         for name, x in interop.to_numpy(a).items():
             assert np.array_equal(x, interop.to_numpy(b)[name], equal_nan=True), name
+
+
+def test_state_digest_matches_plain_and_jax(cuda_device):
+    """The digest kernel equals its plain version, on the card and on the
+    CPU, on every case of chip_smoke.py phase 14 (the JAX stream call's
+    inputs with JAX's value, all-zero, all-NaN-bit, full banks, one
+    keyframe and no point), launching once a call."""
+    from mageslam_tpu_torch.ops import digest
+
+    ref = chip_smoke.load_npz(chip_smoke.DIAG_FIXTURE)
+    for name, case in chip_smoke.digest_cases(ref).items():
+        args = chip_smoke.digest_args(case, cuda_device)
+        n0 = digest.LAUNCHES
+        got = digest.state_digest(*args)
+        assert digest.LAUNCHES == n0 + 1 and got.dtype == torch.float32 and got.shape == (1,)
+        want = {float(digest.state_digest_plain(*args)[0]),
+                float(digest.state_digest(*chip_smoke.digest_args(case, "cpu"))[0])}
+        if "digest" in case:
+            want.add(float(case["digest"]))
+        assert want == {float(got[0])}, name
+    # the scratch is left zero: the same call twice gives the same digest
+    args = chip_smoke.digest_args(chip_smoke.digest_cases(ref)["full"], cuda_device)
+    assert torch.equal(digest.state_digest(*args), digest.state_digest(*args))
+
+
+def test_state_digest_rejects_what_the_kernel_cannot_take(cuda_device):
+    from mageslam_tpu_torch.ops import digest
+
+    pos = torch.zeros((8, 3), device=cuda_device)
+    t = torch.zeros((2, 3), device=cuda_device)
+    mv = torch.zeros(8, dtype=torch.bool, device=cuda_device)
+    kv = torch.zeros(2, dtype=torch.bool, device=cuda_device)
+    fsk = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        digest.state_digest(pos.double(), t, mv, kv, fsk)
+    with pytest.raises(ValueError):
+        digest.state_digest(pos.T.contiguous().T, t, mv, kv, fsk)
+    with pytest.raises(ValueError):
+        digest.state_digest(pos, t, mv, kv, torch.zeros(2, dtype=torch.int32,
+                                                           device=cuda_device))
+    with pytest.raises(ValueError):
+        digest.state_digest(pos, t.cpu(), mv, kv, fsk)
+
+
+def test_determinator_replays_the_stream_on_the_card(cuda_device):
+    """Two runs of the stream window 31-71 on the card from the fixture's
+    state, the second verifying against the first's recording: every
+    checkpoint (the chunk summaries with their digest column, the
+    detections, the tail frame's) bit-identical, one digest launch a chunk
+    frame, and the names those of the JAX stream call's prefix."""
+    from mageslam_tpu_torch.diagnostics import Determinator
+    from mageslam_tpu_torch.ops import digest
+
+    bank, ts, ids = stream_bank(cuda_device, 71)
+
+    def run(det):
+        sess = chip_smoke.stream_session(cuda_device, "s71_")
+        sess.determinator = det
+        return sess.process_frame_stream(bank, ts, ids, start=31, stop=72, chunk=8)
+
+    first = Determinator()
+    n0 = digest.LAUNCHES
+    run(first)
+    assert digest.LAUNCHES - n0 == 40          # five chunks of 8 frames
+    again = Determinator()
+    again._expected = list(first._stream)
+    run(again)
+    assert again.is_deterministic, again.divergences[:4]
+    assert again._cursor == len(first._stream) > 5
+    assert {n for n, _ in first._stream} >= {"Stream.Chunk", "LoopClosure.Detect"}

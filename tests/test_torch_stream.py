@@ -3,20 +3,28 @@
 tests/data/torch_port_stream.npz (`python tools/export_jax_state.py stream`)
 holds a JAX session at bench.py's settings (golden, MinKeyframe 3) after
 frames 0-30 (its snapshot, the file's own keys) and, from that state, its
-`process_frame_stream` over frames 31-71 (chunk 8, `_chunk_pipeline_depth`
-4; `s71_*`) and its `process_frame_pipelined` over 31-58 (`p58_*`; the port
-runs 31-55 of it): per
+`process_frame_stream` over frames 31-95 and 31-71 (chunk 8,
+`_chunk_pipeline_depth` 4; `s95_*`, `s71_*`; the port runs the first) and
+its `process_frame_pipelined` over 31-58 (`p58_*`; the port runs 31-55 of
+it): per
 frame the state, keyframe flag, pose and tracked count, the map's masks
 right after each mapping step, `loop_det_stats`, the index at the end and
 the draws of every relocalization. Its `dr_*` keys hold
 tests/test_stream_loop_closure.py's deferred-resolution scene.
+tests/data/torch_port_diag.npz (`python tools/export_jax_state.py diag`)
+holds the JAX stream call over 31-95 again with a Determinator attached:
+its checkpoint stream and the hash of the `Mapping.Map` tree after each
+mapping step. The port's stream run carries a Determinator too, and one
+run serves every stream test.
 
 Tolerances (as chip_smoke.py phase 13): states and keyframe flags exact,
 R and t within 1e-3, tracked counts within 3, masks after each mapping
 step exact, `loop_det_stats` equal on the JAX keys; the gated step equals
 the per-frame host branch bit for bit, and the chunked call, bank growth
 and a disk snapshot mid-stream give the stream call's results bit for
-bit; the index's vectors within 1e-5.
+bit; the index's vectors within 1e-5; checkpoint names in JAX's order, and
+the hashes of the integer trees (`Post.KeyframeDecision`, `Mapping.Map`, a
+detection that detects nothing) equal to JAX's.
 """
 
 import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
@@ -31,6 +39,7 @@ import torch
 from mageslam_tpu_torch import SlamSession, TrackingState, bench_world, golden_path_settings
 from mageslam_tpu_torch.bow.index import BowIndex
 from mageslam_tpu_torch.config import Budgets, MageSlamSettings
+from mageslam_tpu_torch.diagnostics import Determinator
 from mageslam_tpu_torch.interop import to_numpy, unflatten
 from mageslam_tpu_torch.io.snapshot import load_session_snapshot, save_session_snapshot
 from mageslam_tpu_torch.ops.frontend import detect_and_compute
@@ -47,11 +56,14 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_stream.npz")
 LOOP_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_loop.npz")
+DIAG_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_diag.npz")
 CAM = np.float32([520.0, 520.0, 320.0, 240.0])
 DT = 0.033
 MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
 DET_STATS = ("deferred", "resolved", "stale_slot", "closed", "requeued", "same_loop_dropped")
-LAST = 71
+LAST = 95
+# checkpoints whose trees hold integers and flags only: JAX's hashes
+EXACT_SITES = ("Post.KeyframeDecision", "Mapping.Map", "LoopClosure.Detect")
 
 
 def bench_settings():
@@ -81,7 +93,8 @@ def frames():
 
 class recording_mapping:
     """Records the map's masks right after every mapping step the session
-    runs, on the chunk path and the per-frame path."""
+    runs, on the chunk path and the per-frame path, with the hash of the
+    `Mapping.Map` checkpoint's tree."""
 
     def __init__(self):
         self.events = []
@@ -91,8 +104,11 @@ class recording_mapping:
 
         def rec(*args, **kwargs):
             out = self.real(*args, **kwargs)
+            d = Determinator()
+            d.check("Mapping.Map", out[0].kf_valid, out[0].mp_valid, out[0].kf_assoc)
             self.events.append((int(args[5].frame_id), out[2],
-                                {n: getattr(out[0], n).clone() for n in MASKS}))
+                                {n: getattr(out[0], n).clone() for n in MASKS},
+                                d._stream[0][1]))
             return out
 
         streaming.mapping = session_module.mapping = rec
@@ -104,8 +120,10 @@ class recording_mapping:
 
 @pytest.fixture(scope="module")
 def stream_run(frames):
-    """The port's `process_frame_stream` over 31-71, as the fixture's call."""
-    sess = session("s71_")
+    """The port's `process_frame_stream` over 31-95, as the fixture's call,
+    with a Determinator attached."""
+    sess = session("s95_")
+    sess.determinator = Determinator()
     with recording_mapping() as events:
         res = sess.process_frame_stream(torch.from_numpy(frames),
                                         [i * DT for i in range(LAST + 1)],
@@ -162,33 +180,54 @@ def test_gated_step_equals_host_branch(ref, frames, blank):
 
 def test_stream_results_match_jax(ref, stream_run):
     _, res, _ = stream_run
-    assert_results(res, ref, "s71_", range(31, LAST + 1))
+    assert_results(res, ref, "s95_", range(31, LAST + 1))
 
 
 def test_stream_masks_after_each_event_match_jax(ref, stream_run):
     _, _, events = stream_run
-    assert [e[0] for e in events] == ref["s71_ev_frame_id"].tolist()
-    assert [e[1] for e in events] == ref["s71_ev_ki"].tolist()
-    for j, (_, _, masks) in enumerate(events):
+    assert [e[0] for e in events] == ref["s95_ev_frame_id"].tolist()
+    assert [e[1] for e in events] == ref["s95_ev_ki"].tolist()
+    for j, (_, _, masks, _) in enumerate(events):
         for n in MASKS:
-            assert np.array_equal(masks[n].numpy(), ref[f"s71_ev{j}_{n}"]), (j, n)
+            assert np.array_equal(masks[n].numpy(), ref[f"s95_ev{j}_{n}"]), (j, n)
 
 
 def test_stream_loop_det_stats_match_jax(ref, stream_run):
     sess, _, _ = stream_run
-    assert [sess.loop_det_stats[k] for k in DET_STATS] == ref["s71_det_stats"].tolist()
+    assert [sess.loop_det_stats[k] for k in DET_STATS] == ref["s95_det_stats"].tolist()
     assert sess.loop_det_stats["deferred"] > 0
     assert not sess._pending_chunks and not sess._pending_loop_dets
 
 
 def test_stream_index_matches_jax(ref, stream_run):
     sess, _, _ = stream_run
-    want = to_numpy(unflatten(BowIndex, "s71_bow", ref, "cpu"))
+    want = to_numpy(unflatten(BowIndex, "s95_bow", ref, "cpu"))
     for name, got in to_numpy(sess.bow).items():
         if got.dtype.kind == "f":
             np.testing.assert_allclose(got, want[name], atol=1e-5, err_msg=name)
         else:
             assert np.array_equal(got, want[name]), name
+
+
+def test_stream_checkpoints_follow_jax(stream_run):
+    """The Determinator's stream of the run against the JAX session's
+    (tests/data/torch_port_diag.npz): the same checkpoints in the same
+    order (the chunk summaries, the deferred detections, the tail frame's
+    per-frame sites); the integer trees' hashes equal, float trees' in
+    the last bits apart (sums in another order); and the `Mapping.Map`
+    tree after each mapping step inside the chunks hashed as JAX's."""
+    sess, _, events = stream_run
+    with np.load(DIAG_FIXTURE) as z:
+        names, hashes = [n.decode() for n in z["st_names"].tolist()], z["st_hashes"].tolist()
+        map_frames, map_hashes = z["st_map_frame"].tolist(), z["st_map_hash"].tolist()
+    got = sess.determinator._stream
+    assert [n for n, _ in got] == names
+    assert {"Stream.Chunk", "LoopClosure.Detect", "Post.KeyframeDecision"} <= set(names)
+    for (name, h), want in zip(got, hashes):
+        if name in EXACT_SITES:
+            assert h == want, name
+    assert [e[0] for e in events] == map_frames
+    assert [e[3] for e in events] == map_hashes
 
 
 def assert_same_results(got, want):
@@ -245,7 +284,7 @@ def test_pipelined_matches_jax(ref, frames):
         assert not sess._pending
     assert_results(sess.results[n0:], ref, "p58_", range(31, 56))
     assert [e[0] for e in events] == ref["p58_ev_frame_id"].tolist()
-    for j, (_, _, masks) in enumerate(events):
+    for j, (_, _, masks, _) in enumerate(events):
         for n in MASKS:
             assert np.array_equal(masks[n].numpy(), ref[f"p58_ev{j}_{n}"]), (j, n)
 

@@ -135,7 +135,44 @@ One more holds the reference of the session's throughput entry points:
   (`dr_*`): the drifted map, keyframes 4 and 5 with their detections'
   draws, the re-detection's gate and what the JAX session counted (~6 min).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|all]
+One more holds the references of the diagnostics and the bag-of-words
+scale evaluation:
+
+- `diag`: a JAX session at bench.py's settings (as `stream`) with a
+  `Determinator` attached from its construction, over frames 0-30 per
+  frame; its state is checked to equal `torch_port_stream.npz`'s snapshot.
+  From that state, `process_frame_stream` over 31-95 (chunk 8, depth 4):
+  its checkpoint stream (`st_names`, `st_hashes`), the stream's 20-column
+  chunk summaries (`st_summary`), the hash of the
+  `Mapping.Map` tree after each of the stream's mapping steps
+  (`st_map_hash`, `st_map_frame`), and the digest's inputs and value at
+  `DIGEST_FRAMES` (`dg{j}_*`, one of them a keyframe). Then the photoreal
+  session of `photoreal` with a Determinator over frames 0-`PH_LAST` (init,
+  adoption at 5, keyframes 6 and 7): its checkpoint stream (`ph_names`,
+  `ph_hashes`). Then the xray
+  captures of one loop closure on tests/test_loop_closure.py's scene `a`
+  (`torch_port_loop.npz`'s `a_*`) in a session with MinKeyframe 5 and
+  MinClusterSize 2: `LoopClosure.Detect` and `GlobalBA` (`xr_*_json`),
+  with the detection's relocalization draws (`xr_draws`). Then
+  apps/bow_eval.py's evaluation at a small cut (`BOW_CUT`; descriptors,
+  queries, draws, metrics and each query's top-4 list under `bc_*`) and at
+  full size (the metrics, the top-4 lists and the draws under `bf_*`)
+  (~12 min).
+
+One more holds the JAX references of tests/test_torch_ba.py:
+
+- `ba`: the small scene of tests/test_torch_worldmap.py with keyframe 4
+  and every point knocked off the truth (`win_map*`) and its local BA
+  window (`win_*`), a synthetic problem with all three tether kinds
+  (`teth_p*`), and what the JAX package computes on them: the observation
+  and tether residuals with `project_obs`, the normal equations, the
+  damped solves, two LM iterations, `step_bundle_adjust` on the noiseless
+  scene (`nl_*`), `iterate_bundle_adjust`, the window at each of the
+  test's argument sets (`kw{j}_*`), `build_fidx` and `apply_ba_results`
+  (`apply{0,1}_*`). A window is its problem's leaves (`{w}_p{i}`) and its
+  slot maps by name (~80 s).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|diag|ba|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -148,7 +185,8 @@ tests/data/torch_port_loop.npz (loop),
 tests/data/torch_port_stereo.npz (stereo) and
 tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
 torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi),
-tests/data/torch_port_stream.npz (stream).
+tests/data/torch_port_stream.npz (stream), tests/data/torch_port_diag.npz
+(diag), tests/data/torch_port_ba.npz (ba).
 """
 
 from __future__ import annotations
@@ -1869,10 +1907,506 @@ def main_stream(out_path: str = STREAM_OUT) -> None:
           + f"; deferred scene det_stats {arrays['dr_det_stats'].tolist()}")
 
 
+DIAG_OUT = os.path.join(REPO, "tests", "data", "torch_port_diag.npz")
+PH_LAST = 7                  # the photoreal window 0..7: init, adoption, two keyframes
+DIGEST_FRAMES = (54, 60, 94)   # 54 and 94 are keyframes of the stream call
+# the small bag-of-words cut: views per room, query stride, tolerance
+BOW_CUT = dict(views_per_room=8, query_stride=4, tol=2)
+
+
+def _checkpoints(det, start: int) -> tuple[np.ndarray, np.ndarray]:
+    names = [n for n, _ in det._stream[start:]]
+    return (np.asarray(names, dtype=np.bytes_),
+            np.asarray([h for _, h in det._stream[start:]], np.uint32))
+
+
+def diag_stream_arrays() -> dict:
+    """The Determinator streams, summaries and digest inputs (see `diag`)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mageslam_tpu.diagnostics import Determinator
+    from mageslam_tpu.runtime import SlamSession
+
+    frames = bench_frames(96)
+    det = Determinator()
+    sess = SlamSession(bench_settings(), cam=jnp.asarray(CAM, jnp.float32),
+                       image_width=640, image_height=480, determinator=det)
+    for i in range(SNAP_FRAME + 1):
+        sess.process_frame(frames[i], i * DT, i)
+    arrays = _snapshot_arrays(sess)
+    with np.load(STREAM_OUT) as z:
+        differs = [k for k in arrays if k != "meta_json" and not np.array_equal(z[k], arrays[k])]
+    if differs:
+        raise RuntimeError(f"the session after frame {SNAP_FRAME} differs from "
+                           f"{os.path.basename(STREAM_OUT)}'s snapshot: {differs}")
+    sess._chunk_pipeline_depth = STREAM_DEPTH
+    out: dict = {}
+
+    feeds: dict = {}
+    real_body = sess._scan_frame_body
+
+    def keep(fid, mp_pos, kf_t, mp_valid, kf_valid, fsk, digest):
+        if int(fid) in DIGEST_FRAMES:
+            feeds[int(fid)] = [np.asarray(a) for a in
+                               (mp_pos, kf_t, mp_valid, kf_valid, fsk, digest)]
+
+    def body(carry, image, timestamp, frame_id, map_scale):
+        carry2, outs = real_body(carry, image, timestamp, frame_id, map_scale)
+        m, fsk = carry2[0], carry2[3]
+        jax.debug.callback(keep, frame_id, m.mp_pos, m.kf_pose.t, m.mp_valid, m.kf_valid,
+                           fsk, outs[-1])
+        return carry2, outs
+
+    sess._scan_frame_body = body
+    events = record_mapping_events(sess)
+    summaries = []
+    real_check = det.check
+
+    def check(name, *trees):
+        if name == "Stream.Chunk":
+            summaries.append(np.asarray(trees[0]))
+        real_check(name, *trees)
+
+    det.check = check
+    n0 = len(det._stream)
+    bank = jnp.asarray(np.stack(frames))
+    sess.process_frame_stream(bank, [i * DT for i in range(96)], list(range(96)),
+                              start=SNAP_FRAME + 1, stop=96, chunk=STREAM_CHUNK)
+    sess.flush_chunks()
+    jax.effects_barrier()
+    det.check = real_check
+    out["st_names"], out["st_hashes"] = _checkpoints(det, n0)
+    out["st_summary"] = np.stack(summaries).astype(np.float32)
+    out["st_is_kf"] = np.asarray([r.is_keyframe for r in sess.results[-(95 - SNAP_FRAME):]])
+    events.sort(key=lambda e: e[0])
+    out["st_map_frame"] = np.asarray([e[0] for e in events], np.int32)
+    hashes = []
+    for _, _, masks in events:
+        d = Determinator()
+        d.check("Mapping.Map", masks["kf_valid"], masks["mp_valid"], masks["kf_assoc"])
+        hashes.append(d._stream[0][1])
+    out["st_map_hash"] = np.asarray(hashes, np.uint32)
+    if sorted(feeds) != sorted(DIGEST_FRAMES):
+        raise RuntimeError(f"digest inputs kept at {sorted(feeds)}, not {DIGEST_FRAMES}")
+    for j, fid in enumerate(DIGEST_FRAMES):
+        for name, a in zip(("mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk", "digest"),
+                           feeds[fid]):
+            out[f"dg{j}_{name}"] = a
+        out[f"dg{j}_frame"] = np.int32(fid)
+    out["dg_frames"] = np.asarray(DIGEST_FRAMES, np.int32)
+    print(f"diag stream: {len(out['st_names'])} checkpoints "
+          f"({sorted(set(out['st_names'].tolist()))}), mapping "
+          f"events at {out['st_map_frame'].tolist()}, digests "
+          f"{[float(feeds[f][5]) for f in DIGEST_FRAMES]}")
+    return out
+
+
+def diag_photoreal_arrays() -> dict:
+    """The photoreal session over frames 0..PH_LAST with a Determinator."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.diagnostics import Determinator
+    from mageslam_tpu.runtime import SlamSession
+
+    with np.load(PHOTOREAL_OUT) as z:
+        frames, ts, cam = z["frames"], z["timestamps"], z["cam"]
+    det = Determinator()
+    sess = SlamSession(golden_path_settings(), cam=jnp.asarray(cam),
+                       image_width=PHOTOREAL_SIZE[0], image_height=PHOTOREAL_SIZE[1],
+                       determinator=det)
+    for i in range(PH_LAST + 1):
+        sess.process_frame(frames[i].astype(np.float32), float(ts[i]), i)
+    out = {}
+    out["ph_names"], out["ph_hashes"] = _checkpoints(det, 0)
+    out["ph_is_kf"] = np.asarray([r.is_keyframe for r in sess.results])
+    print(f"diag photoreal: frames 0-{PH_LAST}, {len(out['ph_names'])} checkpoints, keyframes "
+          f"{np.flatnonzero(out['ph_is_kf']).tolist()}")
+    return out
+
+
+def loop_session_settings():
+    """The loop scene's session settings: golden with loop closure on,
+    MinKeyframe 5, MinClusterSize 2 and the scene's bank sizes."""
+    import dataclasses
+
+    sys.path[:0] = [os.path.join(REPO, "tests")]
+    from test_loop_closure import K_CAP, N_CAP, P_CAP
+
+    from mageslam_tpu.config import Budgets, golden_path_settings
+
+    s = golden_path_settings()
+    return dataclasses.replace(
+        s, LoopClosureSettings=dataclasses.replace(
+            s.LoopClosureSettings, EnableLoopClosure=True, MinKeyframe=5, MinClusterSize=2),
+        Budgets=Budgets(MaxFeatures=N_CAP, MaxKeyframes=K_CAP, MaxMapPoints=P_CAP))
+
+
+def diag_xray_arrays() -> dict:
+    """One closure on scene `a` with an XRay attached (see `diag`)."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path[:0] = [os.path.join(REPO, "tests")]
+    from test_loop_closure import CAM as LCAM
+    from test_loop_closure import N_CAP
+
+    from mageslam_tpu.bow.index import BowIndex
+    from mageslam_tpu.diagnostics import XRay
+    from mageslam_tpu.geometry.se3 import Pose
+    from mageslam_tpu.runtime import SlamSession
+    from mageslam_tpu.tracking.frame_state import TrackedFrame
+    from mageslam_tpu.worldmap.map_state import MapState
+
+    with np.load(LOOP_OUT) as z:
+        ref = {k: z[k] for k in z.files}
+
+    def unflat(template, prefix):
+        leaves, treedef = jax.tree.flatten(template)
+        return jax.tree.unflatten(treedef, [jnp.asarray(ref[f"{prefix}{i}"])
+                                            for i in range(len(leaves))])
+
+    from mageslam_tpu.bow.index import empty_index
+    from mageslam_tpu.worldmap import empty_map
+    K, P, N = (int(v) for v in ref["capacity"])
+    m = unflat(empty_map(K, P, N), "a_map")
+    bow = unflat(empty_index(K), "a_bow")
+    f = unflat(TrackedFrame(pose=Pose(0, 0), cam=0, kp_xy=0, kp_octave=0, desc=0, kp_valid=0,
+                            assoc=0, timestamp=0, frame_id=0), "a_frame")
+    assert isinstance(m, MapState) and isinstance(bow, BowIndex)
+    with tempfile.TemporaryDirectory() as tmp:
+        sess = SlamSession(loop_session_settings(), cam=LCAM, image_width=320,
+                           image_height=180, xray=XRay(tmp))
+        sess.map, sess.bow, sess.initialized, sess.last_kf_slot = m, bow, True, 5
+        sess.key = jax.random.PRNGKey(3)
+        _, sub = jax.random.split(sess.key)
+        closed = sess._post_keyframe(f, 5, int(f.frame_id))
+        files = sorted(os.listdir(tmp))
+        if not closed or [x.split("_", 1)[1] for x in files] != [
+                "LoopClosure.Detect.json", "GlobalBA.json"]:
+            raise RuntimeError(f"scene a closed {closed}, captures {files}")
+        out = {}
+        for name, key in zip(files, ("xr_detect_json", "xr_gba_json")):
+            with open(os.path.join(tmp, name), "rb") as fh:
+                out[key] = np.bytes_(fh.read())
+    out["xr_draws"] = reloc_draws(sub, 4, N_CAP)
+    print(f"diag xray: captures {files}, {[len(out[k]) for k in ('xr_detect_json', 'xr_gba_json')]}"
+          f" bytes")
+    return out
+
+
+def bow_eval_arrays(prefix: str, views_per_room: int = 70, query_stride: int = 6,
+                    tol: int = 5, keep_desc: bool = False, seeds=(7, 21, 42)) -> dict:
+    """apps/bow_eval.py's `run_bow_scale_eval` at 320x180 and 64 words, with
+    what it does not return: each vocabulary's draws and each query's top-4
+    keyframes (and, with `keep_desc`, every descriptor)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from mageslam_tpu.apps.render_scene import (CX, CY, FX, FY, build_scene, render_frame,
+                                                trajectory_pose_orbit)
+    from mageslam_tpu.bow.index import add_keyframe, compute_idf, empty_index, query_keyframes
+    from mageslam_tpu.bow.vocab import train_vocabulary
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.ops.frontend import detect_and_compute
+
+    t0 = time.time()
+    width, height, num_words = 320, 180, 64
+    fes = golden_path_settings().MonoSettings.MonoCamera.FeatureExtractorSettings
+    sx, sy = width / 640.0, height / 480.0
+    cam = jnp.array([FX * sx, FY * sy, CX * sx, CY * sy], jnp.float32)
+    fe = jax.jit(lambda img: detect_and_compute(img.astype(jnp.float32), cam, fes,
+                                                max_features=512))
+    K = len(seeds) * views_per_room
+
+    def view(surfaces, phase):
+        R, c = trajectory_pose_orbit(phase, views_per_room)
+        img = render_frame(surfaces, R, c, width, height, frame_index=int(phase * 7) % 97,
+                           supersample=2)
+        f = fe(jnp.asarray(img))
+        return np.asarray(f.desc), np.asarray(f.valid)
+
+    kf_desc = np.zeros((K, 512, 8), np.uint32)
+    kf_valid = np.zeros((K, 512), bool)
+    queries = []
+    for room, seed in enumerate(seeds):
+        surfaces = build_scene(seed, variant="loop")
+        for i in range(views_per_room):
+            kf_desc[room * views_per_room + i], kf_valid[room * views_per_room + i] = \
+                view(surfaces, i)
+        for i in range(0, views_per_room, query_stride):
+            queries.append((room, i + 0.5, *view(surfaces, i + 0.5)))
+    out = {}
+    pools = {"all_rooms_vocab": (kf_desc[::7].reshape(-1, 8), kf_valid[::7].reshape(-1)),
+             "room0_vocab": (kf_desc[:views_per_room:2].reshape(-1, 8),
+                             kf_valid[:views_per_room:2].reshape(-1))}
+    for name, (pd, pv) in pools.items():
+        idx = empty_index(K, num_words=num_words)
+        anchors = train_vocabulary(jnp.asarray(pd), jnp.asarray(pv), jax.random.PRNGKey(0),
+                                   num_words=num_words)
+        out[f"{prefix}{name}_draws"] = np.asarray(
+            jax.random.gumbel(jax.random.PRNGKey(0), (pd.shape[0],)), np.float32)
+        idx = idx._replace(anchors=anchors, trained=jnp.asarray(True))
+        idx = compute_idf(idx, jnp.asarray(pd), jnp.asarray(pv))
+        add = jax.jit(add_keyframe)
+        for k in range(K):
+            idx = add(idx, jnp.int32(k), jnp.asarray(kf_desc[k]), jnp.asarray(kf_valid[k]))
+        q_jit = jax.jit(lambda d, v, idx=idx: query_keyframes(idx, d, v))
+
+        def correct(k, room, phase):
+            r, i = divmod(int(k), views_per_room)
+            dphase = abs(i - phase)
+            dphase = min(dphase, views_per_room - dphase)
+            return r == room and dphase <= tol
+
+        top1 = p4 = qual_rec = cross = 0
+        top4 = []
+        for room, phase, d, v in queries:
+            scores, qualified = q_jit(jnp.asarray(d), jnp.asarray(v))
+            order = np.argsort(-np.asarray(scores))
+            top1 += correct(order[0], room, phase)
+            cross += (order[0] // views_per_room) != room
+            p4 += np.mean([correct(k, room, phase) for k in order[:4]])
+            qual_rec += any(correct(k, room, phase)
+                            for k in np.where(np.asarray(qualified))[0])
+            top4.append(order[:4])
+        nq = len(queries)
+        out[f"{prefix}{name}_metrics"] = np.asarray(
+            [top1 / nq, p4 / nq, qual_rec / nq, cross / nq], np.float64)
+        out[f"{prefix}{name}_top4"] = np.asarray(top4, np.int32)
+        print(f"bow eval {prefix}{name}: top1 {top1 / nq:.4f} p@4 {p4 / nq:.4f} "
+              f"qual_recall {qual_rec / nq:.4f} cross_room {cross / nq:.4f} "
+              f"({time.time() - t0:.0f}s)", flush=True)
+    out[f"{prefix}config"] = np.asarray([views_per_room, query_stride, tol], np.int32)
+    if keep_desc:
+        out[f"{prefix}kf_desc"], out[f"{prefix}kf_valid"] = kf_desc, kf_valid
+        out[f"{prefix}q_room"] = np.asarray([q[0] for q in queries], np.int32)
+        out[f"{prefix}q_phase"] = np.asarray([q[1] for q in queries], np.float64)
+        out[f"{prefix}q_desc"] = np.stack([q[2] for q in queries])
+        out[f"{prefix}q_valid"] = np.stack([q[3] for q in queries])
+    return out
+
+
+def main_diag(out_path: str = DIAG_OUT) -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    arrays = {}
+    arrays.update(diag_stream_arrays())
+    arrays.update(diag_photoreal_arrays())
+    arrays.update(diag_xray_arrays())
+    arrays.update(bow_eval_arrays("bc_", keep_desc=True, **BOW_CUT))
+    arrays.update(bow_eval_arrays("bf_"))
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
+
+
+BA_OUT = os.path.join(REPO, "tests", "data", "torch_port_ba.npz")
+# tests/test_torch_ba.py's window arguments and its argument sets
+BA_WINDOW_KW = dict(max_cams=8, max_points=128, max_obs=256, theta0=5, theta_min=5,
+                    upper_connections=2000, lower_connections=50)
+BA_WINDOW_CASES = (
+    {},                                                  # the whole covisible set fits
+    {"max_cams": 3, "max_points": 50, "max_obs": 90},    # every bank overflows
+    {"upper_connections": 120, "theta_step": 10, "theta_max_steps": 2},   # theta walks up
+    {"theta0": 40, "lower_connections": 150, "theta_step": 10, "theta_max_steps": 2},  # down
+    {"global_window": True},
+)
+BA_HUBERS = (0.0, 1.5)
+BA_LAMBDAS = (1.0, 10.0)
+
+
+def _fields(prefix: str, tree) -> dict:
+    """A NamedTuple's fields as `{prefix}_{field}` arrays (a Pose field as
+    `.R` and `.t`), skipping Python scalars."""
+    out = {}
+    for name, value in tree._asdict().items():
+        if hasattr(value, "R"):
+            out[f"{prefix}_{name}.R"], out[f"{prefix}_{name}.t"] = (np.asarray(value.R),
+                                                                    np.asarray(value.t))
+        elif not isinstance(value, (bool, int, float)):
+            out[f"{prefix}_{name}"] = np.asarray(value)
+    return out
+
+
+def _window(prefix: str, w) -> dict:
+    """A BA window: its problem's array leaves in flatten order
+    (`{prefix}_p{i}`), `points_fixed` and the slot maps by name."""
+    out = _flatten(f"{prefix}_p", w.problem[:-1])
+    out[f"{prefix}_points_fixed"] = np.asarray(w.problem.points_fixed)
+    for name in ("cam_slot", "pt_slot", "obs_kf", "obs_feat", "theta"):
+        out[f"{prefix}_{name}"] = np.asarray(getattr(w, name))
+    return out
+
+
+def ba_perturbed_scene(seed=0, noise=0.0):
+    """tests/test_torch_worldmap.py's small scene with keyframe 4's pose and
+    every point knocked off the truth and `noise` pixels on the
+    observations; keyframes 0 and 1 fixed (which pins the scale)."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.geometry.se3 import Pose as JPose
+    from mageslam_tpu.geometry.se3 import retract
+    from test_torch_worldmap import build_scene
+
+    m, _, _ = build_scene(seed)
+    m = m._replace(kf_fixed=m.kf_fixed.at[1].set(True))
+    rng = np.random.RandomState(seed + 100)
+    bad = retract(JPose(m.kf_pose.R[4], m.kf_pose.t[4]),
+                  jnp.asarray([0.02, -0.01, 0.015, 0.008, -0.006, 0.004], jnp.float32))
+    return m._replace(
+        kf_pose=JPose(m.kf_pose.R.at[4].set(bad.R), m.kf_pose.t.at[4].set(bad.t)),
+        mp_pos=m.mp_pos + jnp.asarray(rng.randn(*m.mp_pos.shape).astype(np.float32) * 0.01),
+        kf_kp_xy=m.kf_kp_xy + jnp.asarray(
+            rng.randn(*m.kf_kp_xy.shape).astype(np.float32) * noise))
+
+
+def ba_tether_problem(seed=0, K=6, Pn=40, O=160, Tn=5):
+    """A synthetic problem with all three tether kinds (and one invalid)."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.ba import problem as jproblem
+    from mageslam_tpu.geometry.se3 import Pose as JPose
+    from mageslam_tpu.geometry.se3 import exp_so3
+
+    rng = np.random.RandomState(seed)
+    p = jproblem.empty_problem(K, Pn, O, n_tethers=Tn)
+    R = np.asarray(exp_so3(jnp.asarray(rng.randn(K, 3).astype(np.float32) * 0.05)))
+    t = np.concatenate([rng.randn(K, 2) * 0.4, np.zeros((K, 1))], 1).astype(np.float32)
+    pts = np.stack([rng.uniform(-1, 1, Pn), rng.uniform(-1, 1, Pn), rng.uniform(4, 7, Pn)],
+                   1).astype(np.float32)
+    oc, op = rng.randint(0, K, O).astype(np.int32), rng.randint(0, Pn, O).astype(np.int32)
+    Xc = np.einsum("oij,oj->oi", R[oc], pts[op]) + t[oc]
+    uv = (300 * Xc[:, :2] / Xc[:, 2:3] + [160, 120] + rng.randn(O, 2)).astype(np.float32)
+    info = np.where(rng.rand(O) < 0.9, rng.uniform(0.5, 1, O), 0).astype(np.float32)
+    c1, c2 = rng.randint(0, K, Tn).astype(np.int32), rng.randint(0, K, Tn).astype(np.int32)
+    c2 = np.where(c1 == c2, (c2 + 1) % K, c2).astype(np.int32)
+    dR = np.asarray(exp_so3(jnp.asarray(rng.randn(Tn, 3).astype(np.float32) * 0.1)))
+    return p._replace(
+        poses=JPose(jnp.asarray(R), jnp.asarray(t)),
+        intrinsics=jnp.tile(jnp.asarray([[300.0, 300.0, 160.0, 120.0]]), (K, 1)),
+        cam_fixed=jnp.arange(K) < 2, cam_valid=jnp.arange(K) < K - 1,
+        points=jnp.asarray(pts), pt_valid=jnp.arange(Pn) < Pn - 2,
+        obs_cam=jnp.asarray(oc), obs_pt=jnp.asarray(op), obs_uv=jnp.asarray(uv),
+        obs_info=jnp.asarray(info),
+        tether_kind=jnp.asarray(np.arange(Tn) % 3, jnp.int32),
+        tether_cam1=jnp.asarray(c1), tether_cam2=jnp.asarray(c2),
+        tether_pose=JPose(jnp.asarray(dR), jnp.asarray(rng.randn(Tn, 3).astype(np.float32) * 0.3)),
+        tether_distance=jnp.asarray(rng.uniform(0.2, 1, Tn).astype(np.float32)),
+        tether_weight=jnp.asarray(np.where(np.arange(Tn) == Tn - 1, 0, 2.0).astype(np.float32)))
+
+
+def main_ba(out_path: str = BA_OUT) -> None:
+    """The JAX references of tests/test_torch_ba.py (see `ba`), computed as
+    that file computed them live: the residuals, `project_obs` and the LM
+    iteration jitted as the JAX pipeline runs them, the normal equations
+    eager apart from the jitted tether residuals, the rest eager."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from mageslam_tpu.ba import problem as jproblem
+    from mageslam_tpu.ba import residuals as jres
+    from mageslam_tpu.ba import schur as jschur
+    from mageslam_tpu.ba import step as jstep
+    from mageslam_tpu.worldmap import ba_window as jwin
+    from mageslam_tpu.worldmap import member_index as jmi
+    from test_torch_worldmap import LEVELS, SCALE, build_scene
+
+    j_obs = jax.jit(jres.observation_residuals)
+    j_tether = jax.jit(jres.tether_residuals)
+    j_project = jax.jit(jres.project_obs)
+    j_lm = jax.jit(jschur.lm_iteration)
+    m = ba_perturbed_scene(noise=0.3)
+    w = jwin.build_local_ba_window(m, jnp.int32(4), **BA_WINDOW_KW)
+    problems = {"window": w.problem, "tethered": ba_tether_problem()}
+    arrays = {**_flatten("win_map", m), **_window("win", w),
+              **_flatten("teth_p", problems["tethered"][:-1])}
+    for which, jp in problems.items():
+        for huber in BA_HUBERS:
+            pre = f"obs_{which}_{huber}"
+            want = j_obs(jp, jp.poses, jp.points, jp.obs_info, jnp.float32(huber))
+            arrays.update(_fields(pre, want))
+            arrays[f"{pre}_behind"] = np.asarray(jres.behind_camera(want))
+            arrays[f"{pre}_cost"] = np.asarray(jres.robust_cost(want.chi2, jnp.float32(huber),
+                                                                want.w))
+        uv, Xc = j_project(jp.poses, jp.intrinsics, jp.points, jp.obs_cam, jp.obs_pt)
+        arrays[f"proj_{which}_uv"], arrays[f"proj_{which}_Xc"] = np.asarray(uv), np.asarray(Xc)
+        # the normal equations at huber 1.5, the solves' input
+        jobs = jres.observation_residuals(jp, jp.poses, jp.points, jp.obs_info,
+                                          jnp.float32(1.5))
+        jeq = jschur.build_normal_equations(jp, jobs, j_tether(jp, jp.poses))
+        arrays.update(_fields(f"eq_{which}", jeq))
+        for lam in BA_LAMBDAS + ((-50.0,) if which == "window" else ()):
+            dx_c, dx_p = jschur.solve_lm_system(jp, jeq, jnp.float32(lam))
+            arrays[f"solve_{which}_{lam}_dx_c"] = np.asarray(dx_c)
+            arrays[f"solve_{which}_{lam}_dx_p"] = np.asarray(dx_p)
+        st = jproblem.BAState.from_problem(jp, -1.0)
+        for j, huber in enumerate((1.5, 0.0)):     # the second starts from lambda > 0
+            r = j_lm(jp, st, jnp.float32(huber))
+            pre = f"lm_{which}_{j}"
+            arrays[f"{pre}_accepted"] = np.asarray(r.accepted)
+            arrays[f"{pre}_cost"] = np.asarray(r.cost)
+            arrays.update(_fields(f"{pre}_state", r.state))
+            st = r.state
+    arrays.update(_fields("teth", j_tether(problems["tethered"], problems["tethered"].poses)))
+
+    # step_bundle_adjust on the noiseless scene, one gross outlier observation
+    truth, _, _ = build_scene()
+    nm = ba_perturbed_scene(noise=0.0)
+    nm = nm._replace(kf_kp_xy=nm.kf_kp_xy.at[3, 0].add(25.0))
+    nw = jwin.build_local_ba_window(nm, jnp.int32(4), **BA_WINDOW_KW)
+    widths = np.float32(1.5) * np.float32(0.9) ** np.arange(4, dtype=np.float32)
+    st, mse, out = jstep.step_bundle_adjust(nw.problem, jproblem.BAState.from_problem(
+        nw.problem, -1.0), jnp.asarray(widths), jnp.float32(4.0))
+    arrays.update(_window("nl", nw))
+    arrays.update(_fields("nl_state", st))
+    arrays.update({"nl_mse": np.asarray(mse), "nl_out": np.asarray(out),
+                   "nl_cam_slot": np.asarray(nw.cam_slot), "nl_widths": widths,
+                   "nl_before_t4": np.asarray(nm.kf_pose.t[4]),
+                   "nl_truth_t4": np.asarray(truth.kf_pose.t[4])})
+
+    kw = dict(huber_width=1.5, max_outlier_error=3.0, huber_width_scale=0.9,
+              max_outlier_error_scale=0.9, min_mean_square_error=1e-9, num_steps=4,
+              steps_per_run=2, min_steps=2)
+    st, mse, steps, out = jstep.iterate_bundle_adjust(
+        w.problem, jproblem.BAState.from_problem(w.problem, -1.0), **kw)
+    arrays.update(_fields("it_state", st))
+    arrays.update({"it_mse": np.float64(mse), "it_steps": np.int32(steps),
+                   "it_out": np.asarray(out)})
+
+    for j, case in enumerate(BA_WINDOW_CASES):
+        arrays.update(_window(f"kw{j}", jwin.build_local_ba_window(
+            m, jnp.int32(4), **{**BA_WINDOW_KW, **case})))
+    fidx = jmi.build_fidx(m)
+    arrays["fidx"] = np.asarray(fidx)
+
+    st, _, out = jstep.step_bundle_adjust(w.problem, jproblem.BAState.from_problem(w.problem),
+                                          jnp.asarray([1.5, 1.2]), jnp.float32(1.0))
+    # enough outliers that some points fall under two observers
+    out = np.asarray(out) | (np.random.RandomState(0).rand(len(out)) < 0.45)
+    arrays.update(_fields("apply_state", st))
+    arrays["apply_out"] = out
+    for with_fidx in (False, True):
+        want = jwin.apply_ba_results(m, w, st.poses, st.points, jnp.asarray(out), LEVELS,
+                                     SCALE, fidx=fidx if with_fidx else None)
+        if with_fidx:
+            arrays["apply1_fidx"] = np.asarray(want[1])
+            want = want[0]
+        arrays.update(_flatten(f"apply{int(with_fidx)}_map", want))
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes, {len(arrays)} arrays")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "stereo", "cameras", "vi", "stream", "all"):
+                     "stereo", "cameras", "vi", "stream", "diag", "ba", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -1896,3 +2430,7 @@ if __name__ == "__main__":
         main_vi()
     if which in ("stream", "all"):
         main_stream()
+    if which in ("diag", "all"):
+        main_diag()
+    if which in ("ba", "all"):
+        main_ba()
