@@ -45,7 +45,13 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      keyframe event gives it and at mono init's shape, beside the two
      composites it replaces (per batch entry the standalone Hamming kernel,
      or `torch._int_mm` of the ±1 bits, and the eager epilogue; no single
-     PyTorch call computes it).
+     PyTorch call computes it);
+   - `csrc/local_best.cu` (the sharded matcher's per-shard best, argmin
+     and second, fused on the same tile) at P in LOCAL_BEST_ROWS x 512,
+     with ties inside and across blocks, a column tied over every row, no
+     valid row, every cell gated out and ragged row counts; timed at those
+     shapes beside its bound and the two composites of the TPU path
+     (hamming.cu or `torch._int_mm`, then the eager epilogue).
    Each call is timed with CUDA events in turns (kernel, plain, plain,
    kernel; 5 samples of 200 calls, of 20 for a plain version, which takes
    milliseconds a call), and each launch's device time is read from
@@ -261,6 +267,34 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      word assignment and k-medoid call held exactly against its plain
      version, the k-medoid launch timed at N = 15,360 and 17,920.
 
+15. The parallel package and the mapping offload, from
+   tests/data/torch_port_parallel.npz (`tools/export_jax_state.py
+   parallel`: the JAX package's parallel/ on its 8 virtual CPU devices and
+   its offloaded session); a mesh here repeats the card:
+   - the sharded guided matcher (its kernel, `csrc/local_best.cu`, checked
+     and timed in phase 3) at (512, 128) and (8192, 512) over 1, 2
+     and 4 copies of the card, exactly JAX's answers, its launches counted
+     from 0 (the kernel line's `sharded_matcher_1_2_4_shards`);
+   - the sharded global-BA step at the budgets' window (K = 256, P = 8192,
+     O = 16,384) over 4 copies of the card, against the port's dense step
+     and JAX's dense and sharded steps at tests/test_global_ba_capacity.py's
+     tolerances, both timed;
+   - the session's sharded global BA (`parallel.mesh_devices` replaced by 4
+     copies of the card, the flag on auto) closing tests/test_loop_closure.py's
+     scene `a`, against the dense branch and JAX's closure;
+   - `batched_track_step` over 8 sessions at 640x480 on 4 copies of the
+     card against JAX's (pose 1e-3, succeeded, tracked 3);
+   - `enable_mapping_offload(cuda:0)` over frames 31-95 from the frame-30
+     state, then `fossilize(0)`, against JAX's offloaded session: states,
+     keyframe flags, poses and tracked counts as in phase 4, the adoptions
+     at JAX's frames, the map after the first exactly JAX's (the later
+     ones' differing mask entries reported); launches counted from 0 on
+     both threads (`offload_frames_31_95`); each frame's wall time beside
+     the synchronous session's (keyframe frames, the frames after them,
+     the rest); frames 53-60 run again from the session's snapshot under
+     the profiler: device events a frame and the time the side stream's
+     kernels overlap the main stream's.
+
 The next-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -350,28 +384,29 @@ MAP_POINT_ATOL = 2e-3     # mp_pos after a mapping event
 MAP_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
 MAP_REPEATS = 5
 # the kernels whose launches are counted, in the order of every launch tuple
-KERNELS = ("radius_match", "two_way_match", "hamming_matrix", "bow_assign", "bow_vocab_step")
+KERNELS = ("radius_match", "two_way_match", "hamming_matrix", "bow_assign", "bow_vocab_step",
+           "local_best")
 # kernel launches of one frame, by KERNELS; the standalone Hamming kernel
 # has no call on the path (bag-of-words goes through bow_words.cu)
-LAUNCHES_TRACKED = (2, 0, 0, 0, 0)
-LAUNCHES_KEYFRAME = (8, 1, 0, 1, 0)      # + the mapping step's and the index add's
-LAUNCHES_MAPPING_STEP = (6, 1, 0, 0, 0)  # the mapping step alone (phase 5)
+LAUNCHES_TRACKED = (2, 0, 0, 0, 0, 0)
+LAUNCHES_KEYFRAME = (8, 1, 0, 1, 0, 0)      # + the mapping step's and the index add's
+LAUNCHES_MAPPING_STEP = (6, 1, 0, 0, 0, 0)  # the mapping step alone (phase 5)
 # from frame 0, by frame class; parts that add up where a frame is several
-LAUNCHES_ANCHOR = (0, 0, 0, 0, 0)
-LAUNCHES_ACCUMULATE = (0, 1, 0, 0, 0)    # the anchor's covisibility counter
-LAUNCHES_PAIR = (0, 1, 0, 0, 0)          # try_initialize_pair's match (an attempt)
-LAUNCHES_THIRD = (0, 1, 0, 0, 0)         # validate_third_frame's match
-LAUNCHES_ADOPTION = (0, 0, 0, 3, 12)     # 12 k-medoid iterations; idf, 2 keyframe adds
-LAUNCHES_RETRAIN = (0, 0, 0, 2, 12)      # 12 iterations; idf, all keyframes' histograms
+LAUNCHES_ANCHOR = (0, 0, 0, 0, 0, 0)
+LAUNCHES_ACCUMULATE = (0, 1, 0, 0, 0, 0)    # the anchor's covisibility counter
+LAUNCHES_PAIR = (0, 1, 0, 0, 0, 0)          # try_initialize_pair's match (an attempt)
+LAUNCHES_THIRD = (0, 1, 0, 0, 0, 0)         # validate_third_frame's match
+LAUNCHES_ADOPTION = (0, 0, 0, 3, 12, 0)     # 12 k-medoid iterations; idf, 2 keyframe adds
+LAUNCHES_RETRAIN = (0, 0, 0, 2, 12, 0)      # 12 iterations; idf, all keyframes' histograms
 # loop detection on a mapped keyframe once the map holds MinKeyframe
 # keyframes: the query's word assignment; where a cluster qualifies, also
 # relocalize's B = 4 two-way match and its stacked rematch
-LAUNCHES_DETECTION = (0, 0, 0, 1, 0)
-LAUNCHES_DETECTION_RELOC = (1, 1, 0, 0, 0)
+LAUNCHES_DETECTION = (0, 0, 0, 1, 0, 0)
+LAUNCHES_DETECTION_RELOC = (1, 1, 0, 0, 0, 0)
 # a lost frame's relocalization: the stacked rematch and track-local-map's
 # match, the B = 4 two-way match, the query's word assignment
-LAUNCHES_RELOC = (2, 1, 0, 1, 0)
-LAUNCHES_STEREO_PAIR = (0, 1, 0, 0, 0)   # stereo_initialize's pair match (B = 1)
+LAUNCHES_RELOC = (2, 1, 0, 1, 0, 0)
+LAUNCHES_STEREO_PAIR = (0, 1, 0, 0, 0, 0)   # stereo_initialize's pair match (B = 1)
 INIT_LAST = 54                     # frames 0..INIT_LAST from frame 0
 INIT_PROFILE_LAST = 14             # the traced pass runs to the retrain
 SCALE_TOL = 0.05                   # |s_jax / s_port - 1| at adoption
@@ -684,10 +719,10 @@ class KeptLaunches:
         return self
 
     def __exit__(self, *exc):
-        from mageslam_tpu_torch.ops import bow_words, digest, hamming, matching
+        from mageslam_tpu_torch.ops import bow_words, digest, hamming, local_best, matching
 
         (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES,
-         bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES) = self.saved
+         bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES, local_best.LAUNCHES) = self.saved
         digest.LAUNCHES = self.saved_digest
 
 
@@ -1570,18 +1605,18 @@ class CountingDraws:
 
 def launch_counts() -> tuple[int, ...]:
     """The launch counts so far, by KERNELS."""
-    from mageslam_tpu_torch.ops import bow_words, hamming, matching
+    from mageslam_tpu_torch.ops import bow_words, hamming, local_best, matching
 
     return (matching.LAUNCHES, matching.TWO_WAY_LAUNCHES, hamming.LAUNCHES,
-            bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES)
+            bow_words.ASSIGN_LAUNCHES, bow_words.STEP_LAUNCHES, local_best.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    from mageslam_tpu_torch.ops import bow_words, digest, hamming, matching
+    from mageslam_tpu_torch.ops import bow_words, digest, hamming, local_best, matching
 
     hamming.LAUNCHES = matching.LAUNCHES = matching.TWO_WAY_LAUNCHES = 0
     bow_words.ASSIGN_LAUNCHES = bow_words.STEP_LAUNCHES = 0
-    digest.LAUNCHES = 0
+    digest.LAUNCHES = local_best.LAUNCHES = 0
 
 
 def counted_launches() -> dict:
@@ -4356,6 +4391,488 @@ def check_diagnostics(device, card: str, events_plain: dict) -> dict:
     return {"digest": dig, "replay": rep, "xray": xr, "bow": bow}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the parallel package and the mapping offload
+
+PARALLEL_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_parallel.npz")
+LOCAL_BEST_ROWS = (1024, 2048, 4096, 8192)   # P / d at P = 8192 over 8, 4, 2, 1 shards
+LOCAL_BEST_TARGETS = 512                     # Budgets.MaxFeatures
+LOCAL_BEST_RAGGED = ((1, 1), (17, 33), (1000, 512), (8191, 500))
+MATCHER_MESHES = (1, 2, 4)                   # copies of the card
+MATCH_GATES = (12.0, 45, 8)                  # radius, max_hamming, min_diff (test_parallel.py)
+CAP_SHARDS = 4
+CAP_RTOL, CAP_ATOL, CAP_FLIPS = 1e-3, 1e-4, 5   # tests/test_global_ba_capacity.py:154-164
+CAP_REPEATS = 3
+BATCH_SESSIONS = 8
+BATCH_SHARDS = 4
+OFFLOAD_FIRST = 31                           # the offloaded window starts after the fixture
+OFFLOAD_TRACED = (53, 60)                    # frames traced for the side stream's overlap
+OVERLAP_FRAMES = 3                           # frames after a keyframe counted as its overlap
+
+
+def matcher_case(P: int, N: int, seed: int = 0) -> list[np.ndarray]:
+    """tests/test_parallel.py:44-51's matcher case at (P, N), as
+    tools/export_jax_state.py builds it for the fixture."""
+    rng = np.random.RandomState(seed)
+    q_desc = rng.randint(0, 2**31, (P, 8)).astype(np.uint32)
+    t_desc = rng.randint(0, 2**31, (N, 8)).astype(np.uint32)
+    t_desc[:64] = q_desc[100:164]
+    q_xy = rng.uniform(0, 300, (P, 2)).astype(np.float32)
+    t_xy = q_xy[100:100 + N].copy()
+    q_valid = rng.rand(P) > 0.1
+    return [q_desc.view(np.int32), q_xy, q_valid, t_desc.view(np.int32), t_xy,
+            np.ones((N,), bool)]
+
+
+def local_best_cases(rng: np.random.RandomState) -> list[tuple[str, list, float, int]]:
+    """(name, numpy inputs, radius, max_hamming) of local_best's checks: the
+    path's shapes, ties inside and across blocks, a column tied over every
+    row, no valid row, every cell gated out, ragged row counts."""
+    cases = [(f"path {p}x{LOCAL_BEST_TARGETS}", matcher_case(p, LOCAL_BEST_TARGETS), 12.0, 45)
+             for p in LOCAL_BEST_ROWS]
+
+    def low(P, N, side=12):
+        q = LOW_ENTROPY_WORDS[rng.randint(0, 6, (P, 8))].view(np.int32)
+        t = LOW_ENTROPY_WORDS[rng.randint(0, 6, (N, 8))].view(np.int32)
+        return [q, rng.randint(0, side, (P, 2)).astype(np.float32), rng.rand(P) < 0.85, t,
+                rng.randint(0, side, (N, 2)).astype(np.float32), rng.rand(N) < 0.9]
+    cases.append(("low-entropy ties 4096x512", low(4096, 512), 2.0, 256))
+    same = low(4096, 512)
+    same[0][:] = same[0][0]
+    same[1][:] = 5.0
+    same[2][:] = True
+    cases.append(("every row tied 4096x512", same, 2.0, 256))
+    none_valid = matcher_case(1024, 512)
+    none_valid[2] = np.zeros(1024, bool)
+    cases.append(("no valid row 1024x512", none_valid, 12.0, 45))
+    cases.append(("every cell gated out 2048x512", matcher_case(2048, 512), 12.0, -1))
+    for p, n in LOCAL_BEST_RAGGED:
+        cases.append((f"ragged {p}x{n}", low(p, n), 3.0, 200))
+    return cases
+
+
+def lb_tensors(case: list, device) -> list[torch.Tensor]:
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in case]
+
+
+def local_best_composite(args, radius, max_h, hamming_fn):
+    """The TPU path's structure: the (P, N) matrix, then the eager epilogue."""
+    from mageslam_tpu_torch.ops.local_best import local_best_from_distances
+
+    q_desc, q_xy, q_valid, t_desc, t_xy, t_valid = args
+    return local_best_from_distances(hamming_fn(q_desc, t_desc), q_xy, q_valid, t_xy,
+                                     t_valid, radius, max_h)
+
+
+def check_local_best(device) -> dict:
+    """local_best.cu exactly against its plain version on every case, then
+    timed at the path's shapes."""
+    from mageslam_tpu_torch.ops import hamming, local_best
+
+    rng = np.random.RandomState(15)
+    max_err = 0
+    with KeptLaunches():
+        for name, case, radius, max_h in local_best_cases(rng):
+            args = lb_tensors(case, device)
+            got = local_best.local_best(*args, radius, max_h)
+            want = local_best.local_best_plain(*args, radius, max_h)
+            torch.cuda.synchronize()
+            for part, g, w in zip(("best", "best_q", "second"), got, want):
+                max_err = max(max_err, int((g.to(torch.int64) - w).abs().max()))
+                if g.dtype != torch.int32 or not torch.equal(g, w.to(torch.int32)):
+                    bad = int((g != w).sum())
+                    raise AssertionError(f"local_best {name}: {part} differs from the plain "
+                                         f"version in {bad} of {g.numel()} targets")
+            b = got[0]
+            phase("kernel", f"local_best {name}: equal to plain (best, best_q, second); "
+                            f"{int((b < local_best.BIG).sum())} targets with a candidate, "
+                            f"{int((got[2] == b).sum())} with second == best")
+    rows = {}
+    for p in LOCAL_BEST_ROWS:
+        args = lb_tensors(matcher_case(8192, LOCAL_BEST_TARGETS), device)
+        args = [a[:p] if k < 3 else a for k, a in enumerate(args)]   # shard 0's rows
+        radius, max_h = MATCH_GATES[:2]
+        with KeptLaunches():
+            t_kernel, t_plain, report = in_turns(
+                lambda: local_best.local_best(*args, radius, max_h),
+                lambda: local_best.local_best_plain(*args, radius, max_h))
+            t_comp = cuda_ms(lambda: local_best_composite(args, radius, max_h,
+                                                          hamming.hamming_matrix))
+            q_pm, t_pm_t = hamming.pm_bits(args[0]), hamming.pm_bits(args[3]).t()
+
+            def int_mm(a, b):
+                return (256 - torch._int_mm(q_pm, t_pm_t)) // 2
+            if not torch.equal(int_mm(None, None), hamming.hamming_matrix(args[0], args[3])):
+                raise AssertionError("local_best's _int_mm yardstick != hamming")
+            t_int_mm = cuda_ms(lambda: local_best_composite(args, radius, max_h, int_mm))
+            us = launch_us(lambda: local_best.local_best(*args, radius, max_h),
+                           "local_best_kernel")
+        n = LOCAL_BEST_TARGETS
+        bound_ms, bound_by = bound(41 * (p + n) + 12 * n, int8_ops=2 * 256 * p * n)
+        share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
+        phase("kernel", f"local_best {p}x{n}: {report}; composites hamming.cu + eager epilogue "
+                        f"{t_comp:.5f} ms, torch._int_mm + eager epilogue {t_int_mm:.5f} ms; "
+                        f"device {us_text(us)} a launch, {share}; bound "
+                        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+        rows[p] = {"shape": [p, n], "ms": t_kernel, "plain_ms": t_plain, "device_us": us,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "composite_hamming_kernel_ms": t_comp, "composite_int_mm_ms": t_int_mm}
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def check_sharded_matcher(device, ref: dict) -> dict:
+    """The sharded matcher over 1, 2 and 4 copies of the card, exactly JAX's
+    answer at both sizes; the path whose launches the kernel line counts."""
+    from mageslam_tpu_torch.parallel import make_session_mesh, make_sharded_guided_matcher
+
+    sizes = {"small": (512, 128), "full": (8192, LOCAL_BEST_TARGETS)}
+    cases = {k: lb_tensors(matcher_case(*pn), device) for k, pn in sizes.items()}
+    ms = {}
+    reset_launch_counts()
+    for d in MATCHER_MESHES:
+        match = make_sharded_guided_matcher(make_session_mesh([device] * d, "model"))
+        for size, args in cases.items():
+            got = match(*args, *MATCH_GATES)
+            if not np.array_equal(got.cpu().numpy(), ref[f"mt_{size}_d8"]):
+                raise AssertionError(f"sharded matcher {size} over {d} shards differs from "
+                                     f"JAX's answer")
+    totals = counted_launches()
+    want = {k: 0 for k in KERNELS}
+    want["local_best"] = len(cases) * sum(MATCHER_MESHES)
+    if totals != want:
+        raise AssertionError(f"sharded matcher launched {totals}, expected {want}")
+    with KeptLaunches():
+        for d in MATCHER_MESHES:
+            match = make_sharded_guided_matcher(make_session_mesh([device] * d, "model"))
+            ms[d] = cuda_ms(lambda: match(*cases["full"], *MATCH_GATES), iters=20, warmup=3,
+                            reps=3)
+    phase("parallel", f"sharded matcher at (512, 128) and (8192, 512) over {MATCHER_MESHES} "
+                      f"copies of the card: exactly JAX's answers; launches {totals}; a call "
+                      f"at (8192, 512): " + ", ".join(f"{d} shards {t:.4f} ms"
+                                                       for d, t in ms.items()))
+    return {"totals": totals, "ms": ms}
+
+
+def load_ba(ref: dict, prefix: str, cls, device):
+    from mageslam_tpu_torch.interop import unflatten
+
+    out = unflatten(cls, prefix, ref, device)
+    return out._replace(points_fixed=False) if hasattr(out, "points_fixed") else out
+
+
+def capacity_errors(got, want) -> tuple[float, float, float, int]:
+    """(mse rel err, poses.t excess, points excess, outlier flips) of two step
+    outputs (state, mse, outliers) at the capacity test's tolerances: an
+    excess over 0 is a failure."""
+    (s1, m1, o1), (s2, m2, o2) = got, want
+
+    def excess(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.abs(a - b) - (CAP_ATOL + CAP_RTOL * np.abs(b))).max())
+    return (abs(float(m1) - float(m2)) / abs(float(m2)),
+            excess(s1.poses.t.cpu(), s2.poses.t.cpu()),
+            excess(s1.points.cpu(), s2.points.cpu()),
+            int((np.asarray(o1.cpu()) != np.asarray(o2.cpu())).sum()))
+
+
+def check_capacity_ba(device, ref: dict, card: str) -> dict:
+    """The sharded global-BA step at the budgets over 4 copies of the card,
+    against the port's dense step and JAX's two."""
+    from mageslam_tpu_torch.ba.problem import BAProblem, BAState
+    from mageslam_tpu_torch.ba.step import step_bundle_adjust
+    from mageslam_tpu_torch.parallel import make_session_mesh, make_sharded_step_bundle_adjust
+
+    p = load_ba(ref, "cap_p", BAProblem, device)
+    st = BAState.from_problem(p)
+    widths = [float(w) for w in ref["cap_widths"]]
+    max_sq = float(ref["cap_max_error_sq"])
+    steps = {"dense": step_bundle_adjust,
+             "sharded": make_sharded_step_bundle_adjust(
+                 make_session_mesh([device] * CAP_SHARDS, "model"))}
+    out, ms = {}, {}
+    for name, step in steps.items():
+        out[name] = step(p, st, widths, max_sq)
+        times = []
+        for _ in range(CAP_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(p, st, widths, max_sq)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    jax_out = {name: (load_ba(ref, f"cap_{name}_st", BAState, device),
+                      ref[f"cap_{name}_mse"], torch.from_numpy(ref[f"cap_{name}_out"]))
+               for name in ("dense", "sharded")}
+    errs = {"port dense": capacity_errors(out["sharded"], out["dense"]),
+            "JAX sharded": capacity_errors(out["sharded"], jax_out["sharded"]),
+            "JAX dense": capacity_errors(out["sharded"], jax_out["dense"])}
+    for what, (mse_err, t_ex, p_ex, flips) in errs.items():
+        if mse_err > CAP_RTOL or t_ex > 0 or p_ex > 0 or flips > CAP_FLIPS:
+            raise AssertionError(f"sharded global-BA step at capacity against {what}: mse "
+                                 f"rel err {mse_err:.3g}, poses.t excess {t_ex:.3g}, points "
+                                 f"excess {p_ex:.3g}, {flips} outlier flips")
+    mem = torch.cuda.max_memory_allocated(device) / 2**30
+    phase("parallel", f"global-BA step at capacity (K={p.num_cameras}, P={p.num_points}, "
+                      f"O={p.num_observations}, widths {widths}) over {CAP_SHARDS} copies of "
+                      f"the card: within rtol {CAP_RTOL} / atol {CAP_ATOL} and {CAP_FLIPS} "
+                      f"outlier flips of " + "; ".join(
+                          f"{w} (mse {e[0]:.3g}, flips {e[3]})" for w, e in errs.items())
+                      + f"; mse {float(out['sharded'][1]):.6g}; wall ms (synchronized, "
+                      f"median of {CAP_REPEATS}) dense {ms['dense']:.2f}, sharded "
+                      f"{ms['sharded']:.2f}; peak memory so far {mem:.2f} GiB; {card}")
+    return {"ms": ms, "errors": {k: list(v) for k, v in errs.items()}}
+
+
+def check_session_sharded_ba(device, card: str) -> dict:
+    """The session's sharded branch (parallel.mesh_devices replaced by 4
+    copies of the card) closing tests/test_loop_closure.py's scene `a`,
+    against the dense branch and JAX's closure."""
+    from mageslam_tpu_torch import parallel
+    from mageslam_tpu_torch.interop import unflatten
+    from mageslam_tpu_torch.runtime.loop_closure import detect_loop
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    with np.load(LOOP_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files if k.startswith("a_")}
+    m, bow, frame = loop_scene(ref, "a", device)
+    det, _, _ = detect_loop(m, bow, frame, 5,
+                            lambda: torch.from_numpy(ref["a_draws"]).to(device),
+                            min_keyframes=5, min_cluster_size=2)
+    maps, ms = {}, {}
+    with Patched((parallel, "mesh_devices", lambda real: lambda d: [device] * CAP_SHARDS)):
+        for flag in (False, None):          # dense forced; auto: CUDA and 4 devices
+            sess = closure_session(device, m, 5)
+            sess.enable_sharded_global_ba = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess._apply_loop_closure(det, frame, 5)
+            torch.cuda.synchronize()
+            ms[flag] = (time.perf_counter() - t0) * 1e3
+            if (sess._sharded_ba_step[1] is not None) != (flag is None):
+                raise AssertionError(f"enable_sharded_global_ba={flag} chose the wrong step")
+            maps[flag] = sess.map
+    want = unflatten(MapState, "a_gba", ref, device)
+    diffs = mask_diffs(maps[None], maps[False])
+    diffs_jax = mask_diffs(maps[None], want)
+    err = aligned_error(maps[None], maps[False])
+    err_jax = aligned_error(maps[None], want)
+    if any(diffs.values()) or any(diffs_jax.values()) or max(err, err_jax) > CLOSURE_ATOL:
+        raise AssertionError(f"the session's sharded closure: masks {diffs} against the "
+                             f"dense branch, {diffs_jax} against JAX; aligned err {err:.3g} / "
+                             f"{err_jax:.3g} (limit {CLOSURE_ATOL})")
+    phase("parallel", f"session closure on scene a, global BA sharded over {CAP_SHARDS} "
+                      f"copies of the card (auto): masks equal to the dense branch's and "
+                      f"JAX's, aligned err {err:.3g} / {err_jax:.3g} (limit {CLOSURE_ATOL}); "
+                      f"wall ms dense {ms[False]:.2f}, sharded {ms[None]:.2f} (first call "
+                      f"each); {card}")
+    return {"ms_dense": ms[False], "ms_sharded": ms[None]}
+
+
+def check_batched_step(device, ref: dict, card: str) -> dict:
+    """batched_track_step over 8 sessions at 640x480 on 4 copies of the card,
+    against JAX's over 8 devices."""
+    from mageslam_tpu_torch import golden_path_settings, parallel
+    from mageslam_tpu_torch.interop import unflatten
+    from mageslam_tpu_torch.tracking.frame_state import TrackedFrame, TrackingHistory
+    from mageslam_tpu_torch.worldmap.map_state import MapState
+
+    n_leaves = sum(1 for k in ref if k.startswith("bt0_map"))
+    trees = ([], [], [])
+    for b in range(BATCH_SESSIONS):
+        leaves = {f"m{i}": ref.get(f"bt{b}_map{i}", ref[f"bt0_map{i}"])
+                  for i in range(n_leaves)}
+        trees[0].append(unflatten(MapState, "m", leaves, device))
+        trees[1].append(unflatten(TrackingHistory, f"bt{b}_hist", ref, device))
+        trees[2].append(unflatten(TrackedFrame, f"bt{b}_frame", ref, device))
+    stacked = [parallel.tree_stack(t) for t in trees]
+    step, shard = parallel.batched_track_step(
+        parallel.make_session_mesh([device] * BATCH_SHARDS, "sessions"),
+        golden_path_settings(), float(WIDTH), float(HEIGHT))
+    out = step(*(shard(t) for t in stacked))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(*(shard(t) for t in stacked))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = out.succeeded.cpu().numpy()
+    err = max(float(np.abs(out.frame.pose.R.cpu().numpy() - ref["bt_R"]).max()),
+              float(np.abs(out.frame.pose.t.cpu().numpy() - ref["bt_t"]).max()))
+    d_count = int(np.abs(out.tracked_count.cpu().numpy() - ref["bt_tracked"]).max())
+    if not np.array_equal(ok, ref["bt_succeeded"]) or err > POSE_ATOL or d_count > TRACKED_TOL:
+        raise AssertionError(f"batched step: succeeded {ok.tolist()} (JAX "
+                             f"{ref['bt_succeeded'].tolist()}), pose err {err:.3g}, tracked "
+                             f"diff {d_count}")
+    phase("parallel", f"batched track step, {BATCH_SESSIONS} sessions at {WIDTH}x{HEIGHT} "
+                      f"over {BATCH_SHARDS} copies of the card: succeeded as JAX's, pose err "
+                      f"{err:.3g} (limit {POSE_ATOL}), tracked diff {d_count} (limit "
+                      f"{TRACKED_TOL}); {ms:.2f} ms a step (wall, synchronized, "
+                      f"{BATCH_SESSIONS / ms * 1e3:.1f} session-frames/s); {card}")
+    return {"ms": ms}
+
+
+def offload_session(device, frames, offload: bool, snap_at: int | None = None):
+    """A session from the frame-30 state over bench frames 31.., mapping
+    offloaded or not. Returns (results, per-frame wall ms, adoptions as
+    (keyframe id, map), the session, its snapshot before frame `snap_at`)."""
+    from mageslam_tpu_torch import SlamSession, golden_path_settings
+
+    sess = SlamSession.from_jax_snapshot(FIXTURE, golden_path_settings(), CAM, WIDTH,
+                                         HEIGHT, device)
+    if offload:
+        sess.enable_mapping_offload(device)
+    adoptions, snap = [], None
+    adopt = sess._adopt_offloaded_mapping
+
+    def recording_adopt():
+        pending = sess._offload_pending
+        adopt()
+        if pending is not None:
+            adoptions.append((int(pending[1].frame_id), sess.map))
+
+    sess._adopt_offloaded_mapping = recording_adopt
+    results, ms = [], []
+    for j, img in enumerate(frames):
+        i = OFFLOAD_FIRST + j
+        if i == snap_at:
+            snap = sess.snapshot_state()
+        t0 = time.perf_counter()
+        results.append(sess.process_frame(img, i * DT, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    sess.fossilize(global_ba_steps=0)
+    return results, ms, adoptions, sess, snap
+
+
+def stream_overlap(events) -> dict:
+    """Kernel time by CUDA stream in a trace and the time the second
+    busiest stream's kernels overlap the busiest's (profiler timestamps);
+    None where the trace names no stream."""
+    by_stream: dict = {}
+    for e in events:
+        sid = getattr(e, "device_resource_id", None)
+        if sid is None or _device_us(e) <= 0:
+            continue
+        by_stream.setdefault(sid, []).append((e.time_range.start, e.time_range.end))
+    if len(by_stream) < 2:
+        return {"streams": len(by_stream), "overlap_us": None}
+    (main, a), (side, b) = sorted(by_stream.items(), key=lambda kv: -len(kv[1]))[:2]
+
+    def union(iv):
+        out = []
+        for s, e in sorted(iv):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return out
+    ua, ub = union(a), union(b)
+    overlap, i, j = 0.0, 0, 0
+    while i < len(ua) and j < len(ub):
+        lo, hi = max(ua[i][0], ub[j][0]), min(ua[i][1], ub[j][1])
+        overlap += max(0.0, hi - lo)
+        if ua[i][1] < ub[j][1]:
+            i += 1
+        else:
+            j += 1
+    return {"streams": len(by_stream), "main_kernels": len(a), "side_kernels": len(b),
+            "main_busy_us": sum(e - s for s, e in ua), "side_busy_us": sum(e - s for s, e in ub),
+            "overlap_us": overlap}
+
+
+def check_offload(device, ref: dict, card: str) -> dict:
+    """The offloaded session over frames 31-95 against JAX's, its launches
+    counted from 0 on both threads, its wall time beside the synchronous
+    session's, and a traced window for the side stream's overlap."""
+    off = {f"ref_{k[4:]}": v for k, v in ref.items() if k.startswith("off_")}
+    last = int(off["ref_frame_id"][-1])
+    frames = render_window(OFFLOAD_FIRST, last + 1)
+    offload_session(device, frames, True)                 # warm pass: the side stream
+    reset_launch_counts()
+    results, ms, adoptions, sess, snap = offload_session(device, frames, True,
+                                                         snap_at=OFFLOAD_TRACED[0])
+    totals = counted_launches()
+    pose_err, count_err = check_window(results, off)
+    kf = [r.frame_id for r in results if r.is_keyframe]
+    adopted = [f for f, _ in adoptions]
+    if adopted != off["ref_adopt_frame"].tolist() or adopted != kf:
+        raise AssertionError(f"offload: keyframes {kf}, adopted {adopted}, JAX adopted "
+                             f"{off['ref_adopt_frame'].tolist()}")
+    diffs = []
+    for j, (_, m) in enumerate(adoptions):
+        want = {f: torch.from_numpy(off[f"ref_ad{j}_{f}"]).to(device) for f in MAP_MASKS}
+        d = {f: int((getattr(m, f) != want[f]).sum()) for f in MAP_MASKS}
+        if j == 0 and any(d.values()):
+            raise AssertionError(f"offload: the map after the first adoption differs from "
+                                 f"JAX's: {d}")
+        diffs.append(d)
+    want_launches = tuple(len(frames) * t + len(kf) * (k - t)
+                          for t, k in zip(LAUNCHES_TRACKED, LAUNCHES_KEYFRAME))
+    if launch_counts() != want_launches:
+        raise AssertionError(f"offload run launched {totals}, expected "
+                             f"{dict(zip(KERNELS, want_launches))}")
+    sync_results, sync_ms, _, _, _ = offload_session(device, frames, False)
+    sync_kf = [r.frame_id for r in sync_results if r.is_keyframe]
+
+    def frame_ms(res, times, kfs):
+        after = {k + d for k in kfs for d in range(1, OVERLAP_FRAMES + 1)}
+        out = {"keyframe": [t for r, t in zip(res, times) if r.frame_id in kfs],
+               "after_keyframe": [t for r, t in zip(res, times) if r.frame_id in after
+                                  and r.frame_id not in kfs],
+               "tracked": [t for r, t in zip(res, times) if r.frame_id not in kfs
+                           and r.frame_id not in after]}
+        return {k: (statistics.median(v) if v else None, len(v)) for k, v in out.items()}
+    walls = {"offload": frame_ms(results, ms, kf), "sync": frame_ms(sync_results, sync_ms,
+                                                                     sync_kf)}
+    # the traced window: from the snapshot before OFFLOAD_TRACED[0], again
+    sess.restore_state(snap)
+    first, stop = OFFLOAD_TRACED
+    traced = frames[first - OFFLOAD_FIRST:stop - OFFLOAD_FIRST + 1]
+    again = []
+    events = profile(lambda: [again.append(sess.process_frame(img, i * DT, i))
+                              for i, img in enumerate(traced, first)])
+    same = all(same_result(a, b) for a, b in zip(again, results[first - OFFLOAD_FIRST:]))
+    overlap = stream_overlap(events)
+    ov = overlap["overlap_us"]
+    phase("offload", f"frames {OFFLOAD_FIRST}-{last} with mapping on a second stream: "
+                     f"states and keyframes as JAX's offloaded session (keyframes {kf}, "
+                     f"adopted at the next keyframe / fossilize), max pose err {pose_err:.3g} "
+                     f"(limit {POSE_ATOL}), max tracked diff {count_err} (limit "
+                     f"{TRACKED_TOL}); masks after each adoption against JAX's: {diffs}")
+    phase("offload", f"launches counted on both threads from 0: {totals} "
+                     f"({LAUNCHES_TRACKED} a frame, {LAUNCHES_KEYFRAME} a keyframe)")
+    phase("offload", "wall ms a frame (process_frame + synchronize; median, count): "
+                     + "; ".join(f"{run} " + ", ".join(
+                         f"{k} {'n/a' if v[0] is None else f'{v[0]:.3f}'} ({v[1]})"
+                         for k, v in w.items()) for run, w in walls.items())
+                     + f"; sync keyframes {sync_kf}; {card}")
+    phase("offload", f"frames {first}-{stop} traced from the snapshot (same results: "
+                     f"{same}): {len(events) / len(traced):.1f} device events a frame, "
+                     f"{overlap['streams']} streams; "
+                     + ("overlap not measured (the trace names no stream)" if ov is None else
+                        f"side stream {overlap['side_kernels']} kernels, "
+                        f"{overlap['side_busy_us']:.1f} us busy, of which {ov:.1f} us overlap "
+                        f"the main stream's {overlap['main_kernels']} kernels "
+                        f"({overlap['main_busy_us']:.1f} us busy)"))
+    return {"totals": totals, "walls": walls, "overlap": overlap, "replay_same": same,
+            "events_a_frame": len(events) / len(traced)}
+
+
+def check_parallel(device, card: str) -> dict:
+    """Phase 15."""
+    clock = time.perf_counter()
+    with np.load(PARALLEL_FIXTURE) as z:
+        ref = {k: z[k] for k in z.files}
+    matcher = check_sharded_matcher(device, ref)
+    phase("time", f"phase 15, the matcher: {time.perf_counter() - clock:.1f} s")
+    cap = check_capacity_ba(device, ref, card)
+    closure = check_session_sharded_ba(device, card)
+    batch = check_batched_step(device, ref, card)
+    phase("time", f"phase 15, BA and batched step: {time.perf_counter() - clock:.1f} s")
+    offload = check_offload(device, ref, card)
+    return {"matcher": matcher, "capacity": cap, "closure": closure, "batch": batch,
+            "offload": offload}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -4387,6 +4904,7 @@ def main() -> int:
     fused_err = check_radius_match(device)
     two_way_err = check_two_way(device)
     bow_err = check_bow_words(device)
+    lb = check_local_best(device)
     least = minimal_launch(device)
     lap("phase 3 (kernel checks)")
 
@@ -4450,6 +4968,8 @@ def main() -> int:
                                             "stream": stream["events_a_frame"],
                                             "stream_ms": stream["device_ms_a_frame"]})
     lap("phase 14 (diagnostics: digest, replays, xray, bag-of-words evaluation)")
+    par = check_parallel(device, card)
+    lap("phase 15 (local_best, sharded matcher, sharded BA, batched step, mapping offload)")
 
     digest_row = {k: diag["digest"]["rows"]["2048x48"][k]
                   for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_us")}
@@ -4478,7 +4998,9 @@ def main() -> int:
                    "vi_frames_0_79": vi["totals"][kernel],
                    "stream_frames_31_95": stream["totals"][kernel],
                    "stream_frames_31_95_determinator": diag["replay"]["totals"][kernel],
-                   "bow_eval_210_keyframes": diag["bow"]["totals"][kernel]}
+                   "bow_eval_210_keyframes": diag["bow"]["totals"][kernel],
+                   "sharded_matcher_1_2_4_shards": par["matcher"]["totals"][kernel],
+                   "offload_frames_31_95": par["offload"]["totals"][kernel]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     def new_shapes(kind: str) -> dict:
@@ -4495,7 +5017,21 @@ def main() -> int:
                 "minimal_launch": least, "note": note,
                 "path_rows": {n: r for n, r in init[kind].items()}}
 
+    lb_row = lb["rows"][LOCAL_BEST_ROWS[-1]]
     print(json.dumps({"kernels": [
+        {"name": "local_best", "route": "cuda",
+         "source": "mageslam_tpu_torch/csrc/local_best.cu",
+         "replaces": "mageslam_tpu/ops/pallas_kernels.py:57", **launches("local_best"),
+         "max_abs_err": lb["max_abs_err"], **{k: lb_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "device_us",
+                                                      "composite_hamming_kernel_ms",
+                                                      "composite_int_mm_ms")},
+         "library_ms": None,
+         "note": "no single PyTorch call computes it; the composites of the TPU path "
+                 "(hamming.cu or torch._int_mm, then the eager epilogue) are timed; top "
+                 "level: the full bank (8192, 512), one shard; rows: P / d at d = 8, 4, 2, 1",
+         "rows": {f"{p}x{LOCAL_BEST_TARGETS}": r for p, r in lb["rows"].items()},
+         "sharded_matcher_ms": par["matcher"]["ms"]},
         {"name": "radius_match", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/radius_match.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57",

@@ -117,22 +117,15 @@ def build_normal_equations(problem: BAProblem, obs: ObsResiduals,
     return NormalEquations(H_cc=H_cc, V=V, Wc=Wc, g_c=g_c, g_p=g_p)
 
 
-def solve_lm_system(problem: BAProblem, eq: NormalEquations, lam):
-    """Solve the damped system through the Schur complement. Returns
-    (dx_c (K, 6), dx_p (P, 3))."""
-    K = problem.num_cameras
-    dev = eq.V.device
+def solve_camera_system(S, b, cam_fixed, cam_valid, lam) -> torch.Tensor:
+    """dx_c (K, 6) of the reduced camera system S (K, K, 6, 6), b (K, 6):
+    lambda on the camera diagonal; fixed and invalid cameras get an
+    identity row and column, so their dx is exactly 0. The sharded solver
+    (parallel/sharded_ba.py) solves its summed system here too."""
+    K = S.shape[0]
+    dev = S.device
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-
-    V_inv = _inv3x3(eq.V + lam * eye3[None])                       # (P, 3, 3)
-    Y = torch.einsum("kpij,pjl->kpil", eq.Wc, V_inv)               # (K, P, 6, 3)
-    S = eq.H_cc - torch.einsum("kpij,qplj->kqil", Y, eq.Wc)        # (K, K, 6, 6)
-    b = eq.g_c - torch.einsum("kpij,pj->ki", Y, eq.g_p)            # (K, 6)
-
-    # damping on the camera diagonal; fixed and invalid cameras get an
-    # identity row and column, so their dx is exactly 0
-    freeze = problem.cam_fixed | ~problem.cam_valid
+    freeze = cam_fixed | ~cam_valid
     keep = (~freeze).to(torch.float32)
     diag = torch.diag_embed(torch.ones((K,), dtype=torch.float32, device=dev))
     S = S + diag[:, :, None, None] * (lam * eye6)
@@ -149,7 +142,18 @@ def solve_lm_system(problem: BAProblem, eq: NormalEquations, lam):
     dx_chol = torch.cholesky_solve(rhs, L)
     dx_lu = torch.linalg.solve_ex(S_mat, rhs, check_errors=False)[0]
     bad = (info != 0) | torch.any(torch.isnan(dx_chol))
-    dx_c = torch.where(bad, dx_lu, dx_chol).reshape(K, 6) * keep[:, None]
+    return torch.where(bad, dx_lu, dx_chol).reshape(K, 6) * keep[:, None]
+
+
+def solve_lm_system(problem: BAProblem, eq: NormalEquations, lam):
+    """Solve the damped system through the Schur complement. Returns
+    (dx_c (K, 6), dx_p (P, 3))."""
+    eye3 = torch.eye(3, dtype=torch.float32, device=eq.V.device)
+    V_inv = _inv3x3(eq.V + lam * eye3[None])                       # (P, 3, 3)
+    Y = torch.einsum("kpij,pjl->kpil", eq.Wc, V_inv)               # (K, P, 6, 3)
+    S = eq.H_cc - torch.einsum("kpij,qplj->kqil", Y, eq.Wc)        # (K, K, 6, 6)
+    b = eq.g_c - torch.einsum("kpij,pj->ki", Y, eq.g_p)            # (K, 6)
+    dx_c = solve_camera_system(S, b, problem.cam_fixed, problem.cam_valid, lam)
 
     rhs_p = eq.g_p - torch.einsum("kpij,ki->pj", eq.Wc, dx_c)      # (P, 3)
     dx_p = torch.einsum("pij,pj->pi", V_inv, rhs_p)

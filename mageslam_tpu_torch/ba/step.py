@@ -21,12 +21,14 @@ from .schur import lm_iteration
 
 
 def step_bundle_adjust(problem: BAProblem, state: BAState, huber_widths,
-                       max_error_square):
+                       max_error_square, iteration=lm_iteration):
     """huber_widths: a sequence of numbers or a (steps,) tensor, one LM
     iteration each. Returns (new_state, mean_square_error,
-    newly_outlier_mask (O,) bool). Reads nothing back to the host."""
+    newly_outlier_mask (O,) bool). Reads nothing back to the host.
+    `iteration` is the LM iteration (the sharded one in
+    parallel/sharded_ba.py)."""
     for hw in huber_widths:
-        state = lm_iteration(problem, state, hw).state
+        state = iteration(problem, state, hw).state
 
     obs = observation_residuals(problem, state.poses, state.points, state.obs_info, 0.0)
     sum_sq = torch.sum(obs.r * obs.r, dim=-1)            # unweighted, as errorData()

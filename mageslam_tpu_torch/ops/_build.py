@@ -4,8 +4,9 @@ Every `.cu` file under `mageslam_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`), one `nvcc` a file, all started together, and the objects
 are linked into one shared library with a plain C interface, under
 `mageslam_tpu_torch/_build/`; the `.cuh` headers there (`hamming_tile.cuh`,
-the tensor-core distance tile of `hamming.cu`, `two_way_match.cu` and
-`bow_words.cu`) are included by them; `state_digest.cu` stands alone. The library's name
+the tensor-core distance tile of `hamming.cu`, `two_way_match.cu`,
+`bow_words.cu` and `local_best.cu`) are included by them; `state_digest.cu`
+stands alone. The library's name
 carries a hash of the sources, headers and flags, so an edited file
 rebuilds and an unchanged tree loads the existing library. A missing `nvcc`
 or a failed build raises.
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +29,18 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH, "-shared")
+# The session's mapping offload launches kernels from a worker thread beside
+# the main one: the wrappers' launch counts and their per-(device, stream)
+# scratch caches are updated under these locks.
+COUNT_LOCK = threading.Lock()
+CACHE_LOCK = threading.Lock()
+
+
+def count_launch(namespace: dict, name: str) -> None:
+    """Add one to a wrapper's launch count `namespace[name]` (its module's
+    globals) under COUNT_LOCK: `+=` on a global is no atomic update."""
+    with COUNT_LOCK:
+        namespace[name] += 1
 
 
 def sources() -> list[str]:
@@ -107,6 +121,12 @@ def library() -> ctypes.CDLL:
         # mp_pos, kf_t, mp_valid, kf_valid, fsk, out, scratch, n_points,
         # n_keyframes, stream
         "mageslam_state_digest": [ptr] * 7 + [i32] * 2 + [ptr],
+        # q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, best, best_q, second,
+        # partials, tickets, radius, max_hamming, n_query, n_target, n_splits,
+        # stream
+        "mageslam_local_best": [ptr] * 11 + [ctypes.c_float] + [i32] * 4 + [ptr],
+        # n_query, n_target
+        "mageslam_local_best_splits": [i32] * 2,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

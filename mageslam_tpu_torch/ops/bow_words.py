@@ -115,7 +115,6 @@ def assign(desc: torch.Tensor, valid: torch.Tensor, anchors: torch.Tensor) -> to
     valid (R,) is false."""
     if all(t.device.type == "cpu" for t in (desc, valid, anchors)):
         return assign_plain(desc, valid, anchors)
-    global ASSIGN_LAUNCHES
     device, n_rows, n_words, stream = _launch_args(desc, valid, anchors, "bow assign")
     out = torch.empty((n_rows,), dtype=torch.int32, device=device)
     if n_rows == 0:
@@ -125,7 +124,7 @@ def assign(desc: torch.Tensor, valid: torch.Tensor, anchors: torch.Tensor) -> to
         n_words, stream)
     if rc != 0:
         raise RuntimeError(f"bow assign kernel launch failed: cudaError {rc}")
-    ASSIGN_LAUNCHES += 1
+    _build.count_launch(globals(), "ASSIGN_LAUNCHES")
     return out
 
 
@@ -133,9 +132,10 @@ def _step_scratch(device: torch.device, stream: int) -> torch.Tensor:
     """Zeroed scratch for the vocab step, one a (device, stream): the kernel
     leaves it zero, so it is cleared once, when it is made."""
     key = (device.index, stream)
-    if key not in _scratch:
-        _scratch[key] = torch.zeros((_SCRATCH_INTS,), dtype=torch.int32, device=device)
-    return _scratch[key]
+    with _build.CACHE_LOCK:   # filled from the mapping offload's worker too
+        if key not in _scratch:
+            _scratch[key] = torch.zeros((_SCRATCH_INTS,), dtype=torch.int32, device=device)
+        return _scratch[key]
 
 
 def vocab_step(desc: torch.Tensor, valid: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
@@ -146,7 +146,6 @@ def vocab_step(desc: torch.Tensor, valid: torch.Tensor, anchors: torch.Tensor) -
     anchor."""
     if all(t.device.type == "cpu" for t in (desc, valid, anchors)):
         return vocab_step_plain(desc, valid, anchors)
-    global STEP_LAUNCHES
     device, n_rows, n_words, stream = _launch_args(desc, valid, anchors, "bow vocab_step")
     out = torch.empty((n_words, WORDS), dtype=torch.int32, device=device)
     rc = _build.library().mageslam_bow_vocab_step(
@@ -154,5 +153,5 @@ def vocab_step(desc: torch.Tensor, valid: torch.Tensor, anchors: torch.Tensor) -
         _step_scratch(device, stream).data_ptr(), n_rows, n_words, stream)
     if rc != 0:
         raise RuntimeError(f"bow vocab_step kernel launch failed: cudaError {rc}")
-    STEP_LAUNCHES += 1
+    _build.count_launch(globals(), "STEP_LAUNCHES")
     return out

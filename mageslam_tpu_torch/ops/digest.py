@@ -70,9 +70,10 @@ def _digest_scratch(device: torch.device, stream: int) -> torch.Tensor:
     """Zeroed scratch (hash, two counts, ticket), one a (device, stream): the
     kernel leaves it zero, so it is cleared once, when it is made."""
     key = (device.index, stream)
-    if key not in _scratch:
-        _scratch[key] = torch.zeros((4,), dtype=torch.int32, device=device)
-    return _scratch[key]
+    with _build.CACHE_LOCK:
+        if key not in _scratch:
+            _scratch[key] = torch.zeros((4,), dtype=torch.int32, device=device)
+        return _scratch[key]
 
 
 def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tensor,
@@ -82,7 +83,6 @@ def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tenso
     bool, fsk a one-element int32 tensor (frames since the last keyframe)."""
     if all(t.device.type == "cpu" for t in (mp_pos, kf_t, mp_valid, kf_valid, fsk)):
         return state_digest_plain(mp_pos, kf_t, mp_valid, kf_valid, fsk)
-    global LAUNCHES
     device = mp_pos.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"state_digest: unsupported device {device} (the current CUDA "
@@ -103,5 +103,5 @@ def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tenso
         stream)
     if rc != 0:
         raise RuntimeError(f"state_digest kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return out

@@ -92,7 +92,6 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     descriptor banks."""
     if desc_a.device.type == "cpu" and desc_b.device.type == "cpu":
         return hamming_matrix_plain(desc_a, desc_b)
-    global LAUNCHES
     device = desc_a.device
     if device.type != "cuda":
         raise ValueError(f"hamming_matrix: unsupported device {device}")
@@ -114,5 +113,5 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
         torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return out

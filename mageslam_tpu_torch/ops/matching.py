@@ -119,7 +119,6 @@ def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
     tensors = (desc_a, valid_a, desc_b, valid_b)
     if all(t.device.type == "cpu" for t in tensors):
         return match_two_way_plain(*tensors, max_hamming, min_diff)
-    global TWO_WAY_LAUNCHES
     device = desc_a.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"match_two_way: unsupported device {device} (the "
@@ -159,7 +158,7 @@ def match_two_way(desc_a, valid_a, desc_b, valid_b, max_hamming: int,
             torch._C._cuda_getCurrentRawStream(device.index))
         if rc != 0:
             raise RuntimeError(f"two_way_match kernel launch failed: cudaError {rc}")
-        TWO_WAY_LAUNCHES += 1
+        _build.count_launch(globals(), "TWO_WAY_LAUNCHES")
     return (out_idx, out_dist) if batched else (out_idx[0], out_dist[0])
 
 
@@ -245,16 +244,17 @@ def _dedup_buffers(device: torch.device, stream: int, n_stages: int, n_query: in
     """(zeroed, claims) scratch of the fused dedup for this (device,
     stream), grown to the call's size; a new zeroed buffer is filled once."""
     key = (device.index, stream)
-    zeroed, claims = _dedup_scratch.get(key, (None, None))
-    n_zeroed = 4 + n_stages * 2 * (n_query + 2)
-    if zeroed is None or zeroed.shape[0] < n_zeroed:
-        zeroed = torch.zeros((max(n_zeroed, 2 * (0 if zeroed is None else zeroed.shape[0])),),
-                             dtype=torch.int32, device=device)
-    if claims is None or claims.shape[0] < n_stages * n_query:
-        claims = torch.empty((max(n_stages * n_query, 4096), 4), dtype=torch.int32,
-                             device=device)
-    _dedup_scratch[key] = (zeroed, claims)
-    return zeroed, claims
+    with _build.CACHE_LOCK:   # filled from the mapping offload's worker too
+        zeroed, claims = _dedup_scratch.get(key, (None, None))
+        n_zeroed = 4 + n_stages * 2 * (n_query + 2)
+        if zeroed is None or zeroed.shape[0] < n_zeroed:
+            zeroed = torch.zeros((max(n_zeroed, 2 * (0 if zeroed is None else zeroed.shape[0])),),
+                                 dtype=torch.int32, device=device)
+        if claims is None or claims.shape[0] < n_stages * n_query:
+            claims = torch.empty((max(n_stages * n_query, 4096), 4), dtype=torch.int32,
+                                 device=device)
+        _dedup_scratch[key] = (zeroed, claims)
+        return zeroed, claims
 
 
 def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
@@ -280,7 +280,6 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
     if all(t.device.type == "cpu" for t in tensors):
         return radius_match_stages_plain(*tensors, max_hamming, min_diff, octave_tol,
                                          group_rows)
-    global LAUNCHES
     device = query_desc.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"radius_match_stages: unsupported device {device} (the "
@@ -320,7 +319,7 @@ def radius_match_stages(query_desc, query_xy, query_octave, query_valid,
         int(min_diff), group, stream)
     if rc != 0:
         raise RuntimeError(f"radius_match kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _build.count_launch(globals(), "LAUNCHES")
     return out_idx, out_dist
 
 

@@ -1,6 +1,6 @@
 """Whole-map bundle adjustment (port of the reference's `_global_ba`,
-mageslam_tpu/runtime/pipeline.py:2297-2358, single-device branch): loop
-closure and `fossilize` both run it.
+mageslam_tpu/runtime/pipeline.py:2297-2358): loop closure and `fossilize`
+both run it.
 
 The global window covers every live keyframe and point, its caps clamped
 to the live bank capacity; `iterate_bundle_adjust` runs the BundleAdjustTask
@@ -9,8 +9,10 @@ and the loop stops once the MSE reaches MinMeanSquareError after
 MinSteps, Tasks/MappingWorker.cpp:357-361), and `apply_ba_results` writes
 back. The host reads the live tether count once (a map without a live
 tether runs without the tether bank, as the mapping step does) and the MSE
-once a run. The sharded branch comes with the port of
-mageslam_tpu/parallel.
+once a run. `step_fn` is the per-run step: the dense
+ba/step.step_bundle_adjust by default, or the point-sharded one
+(parallel/sharded_ba.py) that the session chooses where it has several
+devices (SlamSession._global_ba_step_fn, pipeline.py:2264-2295).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..worldmap.map_state import MapState
 
 
 def global_ba(settings, map_state: MapState, ki: int, steps: int, huber: float = 0.9,
-              max_outlier_error: float = 4.0, bas=None, capture=None):
+              max_outlier_error: float = 4.0, bas=None, capture=None, step_fn=None):
     """Returns (map_state, mse as a float). `bas` gives the schedule's
     constants (default: settings.BundleAdjustSettings). `capture`, where
     given, is called with the reference's xray inputs and outputs
@@ -46,7 +48,7 @@ def global_ba(settings, map_state: MapState, ki: int, steps: int, huber: float =
         huber_width_scale=bas.HuberWidthScale,
         max_outlier_error_scale=bas.MaxOutlierErrorScaleFactor,
         min_mean_square_error=bas.MinMeanSquareError, num_steps=steps,
-        steps_per_run=max(bas.NumStepsPerRun, 1), min_steps=bas.MinSteps)
+        steps_per_run=max(bas.NumStepsPerRun, 1), min_steps=bas.MinSteps, step_fn=step_fn)
     new_map = apply_ba_results(map_state, window, st.poses, st.points, outliers,
                                fes.NumLevels, fes.ScaleFactor)
     if capture is not None:

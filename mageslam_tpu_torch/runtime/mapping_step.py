@@ -13,7 +13,9 @@ bank returns the map untouched. The same read says whether the map holds
 a live tether: a mono map holds none, and local BA then runs without the
 tether bank, whose forward-mode Jacobians cost more host time than the rest
 of the event. The read's keyframe and point counts go back to the caller,
-which arms bank growth by them. Mapping on a second device is not ported.
+which arms bank growth by them. With the session's mapping offload
+(`SlamSession.enable_mapping_offload`), `mapping_body` runs on a worker
+thread and a second CUDA stream, and its one read blocks that thread only.
 """
 
 from __future__ import annotations

@@ -28,6 +28,15 @@ TrackingLostCountUntilReloc failed frames a frame relocalizes
 `fossilize` runs the final global BA and returns the trajectory;
 `snapshot_state` / `restore_state` rewind the session in memory.
 
+With several devices the global BA splits its Schur system over the point
+axis (parallel/sharded_ba.py; `enable_sharded_global_ba`, pipeline.py:
+2264-2295). `enable_mapping_offload(device)` moves each keyframe's mapping
+to a worker thread that issues it on a second CUDA stream of `device` (on
+the CPU, the thread alone) while tracking goes on against the map as it
+was; the result is adopted at the next keyframe, relocalization, safe
+point or `fossilize`, as the reference's offload to a second device
+(pipeline.py:2176-2235).
+
 Mono init, the vocabulary and relocalization draw random numbers; the
 session takes them from `draws` (runtime/draws.py), by default a generator
 seeded by `seed`.
@@ -82,11 +91,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..bow.index import add_keyframe as bow_add_keyframe
 from ..bow.index import empty_index, grow_index
 from ..ba.problem import TETHER_TRANSFORM
@@ -111,7 +122,7 @@ from .frame_step import prepare_image
 from .global_ba import global_ba
 from .init_step import BowTraining, InitWindow, adopt, try_initialize
 from .loop_closure import close_loop
-from .mapping_step import mapping
+from .mapping_step import mapping, mapping_body
 from .pose_history import PoseHistory
 from .post_step import post_step
 from .reloc_step import reloc_step
@@ -214,6 +225,17 @@ class SlamSession(StreamEntryPoints):
         self.loop_det_stats = dict.fromkeys(("live", "qualified", "closed",
                                              *DEFERRED_STATS), 0)
         self._grow_pending = False
+        # the mapping offload (enable_mapping_offload): None = mapping in the
+        # frame; a pending pass is (future, frame, tracking counters then)
+        self._mapping_device = None
+        self._offload_stream = None
+        self._offload_pool = None
+        self._offload_pending = None
+        # the sharded global BA: None = auto (shard where the session is on
+        # CUDA and parallel.mesh_devices gives several devices), True/False
+        # force; the step is cached on (flag, devices)
+        self.enable_sharded_global_ba: bool | None = None
+        self._sharded_ba_step = None
         self.results: list[FrameResult] = []
         # the visual-inertial path (pipeline.py:192-200), its filter chosen
         # by FilterType (SensorFilter.h:99-157: 3Dof / 6Dof / Simple6Dof)
@@ -508,6 +530,7 @@ class SlamSession(StreamEntryPoints):
     def _relocalize(self, feats: FrameFeatures, timestamp, frame_id) -> FrameResult:
         """mageslam_tpu/runtime/pipeline.py:1887-1906 `_relocalize`: one
         read of the outcome; a relocalized frame is never a keyframe."""
+        self._adopt_offloaded_mapping()
         C = self.settings.MappingSettings.MaxRelocQueryResults
         draws = self.draws.gumbel("reloc", (C, RELOC_HYPOTHESES, self.N))
         res = reloc_step(self.settings, self.width, self.height, self.map, self.bow,
@@ -530,7 +553,11 @@ class SlamSession(StreamEntryPoints):
 
     def _insert_keyframe_and_map(self, frame: TrackedFrame) -> None:
         """mageslam_tpu/runtime/pipeline.py:2237-2261, then `_post_keyframe`:
-        the bag-of-words add and loop detection."""
+        the bag-of-words add and loop detection. With the offload on, the
+        pass is handed to the worker instead."""
+        if self._mapping_device is not None:
+            self._offload_mapping(frame)
+            return
         self.map, self.pose_history, ki, (n_kf, n_mp) = mapping(
             self.settings, self.width, self.height, self.map, self.pose_history,
             frame, self.map_scale)
@@ -544,6 +571,122 @@ class SlamSession(StreamEntryPoints):
         # and the culls: where those remove something, growth is armed a
         # little earlier than the reference's post-mapping counts would
         self._maybe_grow_banks(n_kf, n_mp)
+
+    # ------------------------------------------------------------------ #
+    # the mapping offload (pipeline.py:2176-2235)
+
+    def enable_mapping_offload(self, device) -> None:
+        """Map each keyframe on `device` while tracking goes on: a worker
+        thread (the reference's MappingWorker thread) issues the mapping
+        schedule on a second CUDA stream of `device`, or on the CPU runs it
+        beside the main thread. The pass works on a copy of the map;
+        tracking uses the map as it was until the result is adopted at the
+        next keyframe, relocalization, safe point or `fossilize`, and the
+        tracking counters earned meanwhile are merged into it."""
+        self._adopt_offloaded_mapping()
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self._mapping_device = device
+        self._offload_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                                else None)
+        if self._offload_pool is None:
+            # the worker's own OpenMP threads: as many as the main thread's
+            self._offload_pool = ThreadPoolExecutor(
+                1, "mapping", initializer=torch.set_num_threads,
+                initargs=(torch.get_num_threads(),))
+
+    def _offload_mapping(self, frame: TrackedFrame) -> None:
+        """pipeline.py:2191-2199: adopt the pass before (one pass at a time),
+        copy the map and the frame on the main stream, and hand them to
+        the worker, whose stream waits for the copy."""
+        self._adopt_offloaded_mapping()
+        dev = self._mapping_device
+        counters = (self.map.mp_found, self.map.mp_predicted)
+        m, f = parallel.tree_map(lambda x: x.to(dev, copy=True), (self.map, frame))
+        copied = None
+        if self._offload_stream is not None:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(dev))
+        job = self._offload_pool.submit(self._offload_worker, m, f, self.map_scale, copied)
+        self._offload_pending = (job, frame, counters)
+
+    def _offload_worker(self, m, f, map_scale: float, copied):
+        """The worker thread: the mapping schedule without the pose-history
+        rebase (`mapping_body`); its one host read blocks this thread
+        only. Returns (its outputs, the event after its last launch)."""
+        stream = self._offload_stream
+        if stream is None:
+            return mapping_body(self.settings, self.width, self.height, m, f, map_scale), None
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            stream.wait_event(copied)
+            # the copies were made on the main stream: not reused before
+            # this stream is done with them
+            parallel.tree_map(lambda x: x.record_stream(stream), (m, f))
+            out = mapping_body(self.settings, self.width, self.height, m, f, map_scale)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return out, done
+
+    def _adopt_offloaded_mapping(self) -> None:
+        """pipeline.py:2201-2235: the pass's map on the session's device,
+        the tracking counters earned since the copy merged where the point
+        is valid, the pose history rebased, then the keyframe's
+        bag-of-words add and loop detection. Like the reference it reads no
+        counts and arms no bank growth."""
+        if self._offload_pending is None:
+            return
+        job, frame, (found0, predicted0) = self._offload_pending
+        self._offload_pending = None
+        (m2, ki, culled, old_poses, live), done = job.result()
+        out = (m2, culled, old_poses)
+        if done is not None:
+            for dev in {self._mapping_device, self.device} - {torch.device("cpu")}:
+                torch.cuda.current_stream(dev).wait_event(done)
+            main = torch.cuda.current_stream(self._mapping_device)
+            parallel.tree_map(lambda x: x.record_stream(main), out)
+        m2, culled, old_poses = parallel.tree_map(lambda x: x.to(self.device), out)
+        m = self.map
+        m2 = m2._replace(
+            mp_found=torch.where(m2.mp_valid, m2.mp_found + (m.mp_found - found0),
+                                 m2.mp_found),
+            mp_predicted=torch.where(m2.mp_valid,
+                                     m2.mp_predicted + (m.mp_predicted - predicted0),
+                                     m2.mp_predicted))
+        if ki >= 0:
+            self.pose_history = self.pose_history.rebase(
+                old_poses, culled, self._scalar(ki, torch.int64), m2.kf_pose)
+        self.map = m2
+        if ki >= 0:
+            self.frames_since_keyframe = 0
+            self.last_kf_slot = ki
+            self._kf_bound = live[0]
+            self._post_keyframe(frame, ki, live[0])
+
+    def _drop_offloaded_mapping(self) -> None:
+        """Forget a pending pass (`restore_state`), once its worker is done."""
+        if self._offload_pending is not None:
+            self._offload_pending[0].result()
+            self._offload_pending = None
+
+    def _global_ba_step_fn(self):
+        """pipeline.py:2264-2295: the dense step, or the point-sharded one
+        over `parallel.mesh_devices(self.device)`, their count cut until it
+        divides Budgets.MaxMapPoints; cached on (flag, devices)."""
+        devs = parallel.mesh_devices(self.device)
+        key = (self.enable_sharded_global_ba, len(devs))
+        if self._sharded_ba_step is not None and self._sharded_ba_step[0] == key:
+            return self._sharded_ba_step[1]
+        use = self.enable_sharded_global_ba
+        if use is None:
+            use = self.device.type == "cuda" and len(devs) > 1
+        n = len(devs)
+        while n > 1 and self.settings.Budgets.MaxMapPoints % n:
+            n -= 1
+        step = (parallel.make_sharded_step_bundle_adjust(
+            parallel.make_session_mesh(devs[:n], "model")) if use and n > 1 else None)
+        self._sharded_ba_step = (key, step)
+        return step
 
     def _post_keyframe(self, frame: TrackedFrame, ki: int, n_kf_bound: int | None,
                        defer: bool = False) -> bool:
@@ -596,7 +739,8 @@ class SlamSession(StreamEntryPoints):
         self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot,
                                 steps=max(bas.NumSteps, 5), huber=bas.HuberWidth,
                                 max_outlier_error=bas.MaxOutlierError, bas=bas,
-                                capture=self._global_ba_capture())
+                                capture=self._global_ba_capture(),
+                                step_fn=self._global_ba_step_fn())
         self.map = refresh_membership(self.map)
         self._det_check("LoopClosure.Close", self.map.kf_pose, self.map.mp_pos)
         self.n_loops_closed += 1
@@ -648,9 +792,11 @@ class SlamSession(StreamEntryPoints):
         (M,), world→camera matrices (M, 4, 4)) as numpy, sorted by frame id."""
         steps = global_ba_steps if global_ba_steps is not None else \
             self.settings.GraphOptimizationSettings.NumSteps
+        self._adopt_offloaded_mapping()
         if self.initialized and steps > 0:
             self.map, _ = global_ba(self.settings, self.map, self.last_kf_slot, steps,
-                                    capture=self._global_ba_capture())
+                                    capture=self._global_ba_capture(),
+                                    step_fn=self._global_ba_step_fn())
         ids, mats = FossilizedMap(self.map, self.pose_history, self.fes).trajectory()
         self._det_check("Fossilize.Trajectory", ids, mats)
         return ids, mats
@@ -676,8 +822,10 @@ class SlamSession(StreamEntryPoints):
         is not part of it.
         Every state update makes new tensors, so the snapshot holds
         references, not copies. `restore_state` rewinds to it. The queues of
-        the throughput entry points are drained first."""
+        the throughput entry points are drained first, and a pending
+        offloaded mapping pass is adopted."""
         self._drain()
+        self._adopt_offloaded_mapping()
         snap = {a: getattr(self, a) for a in self._SNAP_ATTRS}
         snap["loop_det_stats"] = dict(self.loop_det_stats)
         bt, win = self.bow_training, self.init_window
@@ -693,6 +841,7 @@ class SlamSession(StreamEntryPoints):
         recorded since are dropped, and the queues cleared. Frames run again
         give the same results."""
         self._clear_queues()
+        self._drop_offloaded_mapping()
         for a in self._SNAP_ATTRS:
             setattr(self, a, snap[a])
         self.loop_det_stats = dict(snap["loop_det_stats"])
@@ -722,6 +871,7 @@ class SlamSession(StreamEntryPoints):
         drain the queues, then grow the map banks and the index's keyframe
         rows. Returns the chunk results the drain resolved."""
         drained = self._drain()
+        self._adopt_offloaded_mapping()
         b = self.settings.Budgets
         self.map = grow_map(self.map, b.MaxKeyframes, b.MaxMapPoints)
         self.bow = grow_index(self.bow, b.MaxKeyframes)

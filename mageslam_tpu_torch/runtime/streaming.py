@@ -265,6 +265,10 @@ class StreamEntryPoints:
                 results.append(self.process_frame(im, float(ts), int(fid)))
             return results
         results = self._service_bank_growth() if self._grow_pending else []
+        # mapping in a chunk is not offloaded: a pending pass is adopted
+        # first, or its copy of the map would overwrite the chunk's
+        # (pipeline.py:1326-1330, 1403)
+        self._adopt_offloaded_mapping()
         self._dispatch_chunk(images, timestamps, frame_ids)
         if len(self._pending_chunks) > self._chunk_pipeline_depth:
             results.extend(self._resolve_chunks(len(self._pending_chunks) - 1))
@@ -285,6 +289,7 @@ class StreamEntryPoints:
         else:
             bank = torch.stack([torch.as_tensor(np.asarray(im)) for im in image_bank]
                                ).to(self.device)
+        self._adopt_offloaded_mapping()   # see process_frames_chunked
         results = []
         base = start
         while base < stop:

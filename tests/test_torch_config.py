@@ -89,6 +89,7 @@ def test_port_stands_alone(tmp_path):
         "for mod in pkgutil.walk_packages(m.__path__, 'mageslam_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "assert 'mageslam_tpu_torch.fuser.fuser' in sys.modules\n"
+        "assert 'mageslam_tpu_torch.parallel.sharded_ba' in sys.modules\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(\n"
         "    ('jax.', 'jaxlib', 'mageslam_tpu.')) or k == 'mageslam_tpu')\n"
         "print(state, bad)\n"

@@ -928,3 +928,63 @@ def test_determinator_replays_the_stream_on_the_card(cuda_device):
     assert again.is_deterministic, again.divergences[:4]
     assert again._cursor == len(first._stream) > 5
     assert {n for n, _ in first._stream} >= {"Stream.Chunk", "LoopClosure.Detect"}
+
+
+# ------------------------------------------------- parallel and offload ----
+
+def test_local_best_kernel_matches_plain(cuda_device):
+    """local_best.cu on chip_smoke.py's cases (the path's shapes, ties
+    inside and across blocks, a column tied over every row, no valid row,
+    every cell gated out, ragged rows): one launch a call, all three outputs
+    exactly the plain version's."""
+    from mageslam_tpu_torch.ops import local_best
+
+    for name, case, radius, max_h in chip_smoke.local_best_cases(np.random.RandomState(15)):
+        args = chip_smoke.lb_tensors(case, cuda_device)
+        before = local_best.LAUNCHES
+        got = local_best.local_best(*args, radius, max_h)
+        torch.cuda.synchronize()
+        assert local_best.LAUNCHES == before + 1
+        for g, w in zip(got, local_best.local_best_plain(*args, radius, max_h)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+def test_local_best_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    from mageslam_tpu_torch.ops import local_best
+
+    args = chip_smoke.lb_tensors(chip_smoke.matcher_case(512, 128), cuda_device)
+    with pytest.raises(TypeError):
+        local_best.local_best(args[0].to(torch.int64), *args[1:], 12.0, 45)
+    with pytest.raises(ValueError):
+        local_best.local_best(args[0][:, :4].contiguous(), *args[1:], 12.0, 45)
+    with pytest.raises(ValueError):
+        local_best.local_best(args[0][:0], args[1][:0], args[2][:0], *args[3:], 12.0, 45)
+    with pytest.raises(ValueError):
+        local_best.local_best(args[0], args[1].cpu(), *args[2:], 12.0, 45)
+
+
+def test_sharded_matcher_on_copies_of_the_card(cuda_device):
+    """The sharded matcher over 4 copies of the card: JAX's answers."""
+    from mageslam_tpu_torch.parallel import make_session_mesh, make_sharded_guided_matcher
+
+    with np.load(chip_smoke.PARALLEL_FIXTURE) as z:
+        want = {k: z[k] for k in ("mt_small_d8", "mt_full_d8")}
+    match = make_sharded_guided_matcher(make_session_mesh([cuda_device] * 4, "model"))
+    for size, (P, N) in (("small", (512, 128)), ("full", (8192, 512))):
+        args = chip_smoke.lb_tensors(chip_smoke.matcher_case(P, N), cuda_device)
+        got = match(*args, *chip_smoke.MATCH_GATES)
+        np.testing.assert_array_equal(got.cpu().numpy(), want[f"mt_{size}_d8"])
+
+
+def test_offload_on_a_second_stream_follows_jax(cuda_device):
+    """Frames 31-60 with the mapping offloaded to a second stream of the
+    card, then fossilize(0): states, keyframe flags, poses and tracked
+    counts as JAX's offloaded session; every pass adopted."""
+    with np.load(chip_smoke.PARALLEL_FIXTURE) as z:
+        ref = {f"ref_{k[4:]}": z[k][:30] for k in ("off_frame_id", "off_R", "off_t",
+                                                    "off_tracked", "off_is_kf", "off_state")}
+    frames = chip_smoke.render_window(31, 61)
+    results, _, adoptions, sess, _ = chip_smoke.offload_session(cuda_device, frames, True)
+    chip_smoke.check_window(results, ref)
+    assert [f for f, _ in adoptions] == [r.frame_id for r in results if r.is_keyframe]
+    assert sess._offload_stream is not None and sess._offload_pending is None

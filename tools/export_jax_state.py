@@ -172,7 +172,26 @@ One more holds the JAX references of tests/test_torch_ba.py:
   (`apply{0,1}_*`). A window is its problem's leaves (`{w}_p{i}`) and its
   slot maps by name (~80 s).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|diag|ba|all]
+One more holds the JAX references of the port's parallel package and the
+session's mapping offload (tests/test_torch_parallel.py,
+tests/test_torch_offload.py, chip_smoke.py phase 15), on 8 virtual CPU
+devices (`XLA_FLAGS=--xla_force_host_platform_device_count=8`):
+
+- `parallel`: the sharded matcher's answers over 8 devices at
+  tests/test_parallel.py's (512, 128) and the budgets' (8192, 512)
+  (`mt_*`; the inputs are rebuilt from `matcher_case`'s seed); its
+  `_problem` (RandomState(0)) with one sharded LM iteration, four chained
+  and the dense one (`lm_*`); tests/test_global_ba_capacity.py's window
+  (`build_capacity_map(RandomState(0))`) with the dense and the sharded
+  step (`cap_*`); the per-frame session's maps, histories and frames
+  before frames 31-38 (session 0's map whole, the others' differing
+  leaves) and `batched_track_step` over the 8 (`bt*`); the session from
+  frame 0 with a Determinator and, from frame 31, the mapping offloaded to
+  `jax.devices()[1]` over frames 31-95, then `fossilize(0)`: per-frame
+  outputs, the map's masks after each adoption, the trajectory and the
+  checkpoints from frame 31 (`off_*`) (~5 min).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|diag|ba|parallel|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -186,7 +205,8 @@ tests/data/torch_port_stereo.npz (stereo) and
 tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
 torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi),
 tests/data/torch_port_stream.npz (stream), tests/data/torch_port_diag.npz
-(diag), tests/data/torch_port_ba.npz (ba).
+(diag), tests/data/torch_port_ba.npz (ba), tests/data/torch_port_parallel.npz
+(parallel).
 """
 
 from __future__ import annotations
@@ -2403,10 +2423,229 @@ def main_ba(out_path: str = BA_OUT) -> None:
     print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes, {len(arrays)} arrays")
 
 
+PARALLEL_OUT = os.path.join(REPO, "tests", "data", "torch_port_parallel.npz")
+PARALLEL_LAST = 95            # the offloaded session's last frame
+BATCH = 8                     # the batched track step's sessions
+MATCH_CASES = (("small", 512, 128), ("full", 8192, 512))   # Budgets' P, N for full
+MATCH_GATES = (12.0, 45, 8)   # radius, max_hamming, min_diff (tests/test_parallel.py)
+OFFLOAD_MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
+
+
+def matcher_case(P: int, N: int, seed: int = 0) -> tuple:
+    """tests/test_parallel.py:44-51's matcher case at (P, N): queries and
+    targets with near-copies so real matches exist (numpy)."""
+    rng = np.random.RandomState(seed)
+    q_desc = rng.randint(0, 2**31, (P, 8)).astype(np.uint32)
+    t_desc = rng.randint(0, 2**31, (N, 8)).astype(np.uint32)
+    t_desc[:64] = q_desc[100:164]
+    q_xy = rng.uniform(0, 300, (P, 2)).astype(np.float32)
+    t_xy = q_xy[100:100 + N].copy()
+    q_valid = rng.rand(P) > 0.1
+    t_valid = np.ones((N,), bool)
+    return q_desc, q_xy, q_valid, t_desc, t_xy, t_valid
+
+
+def parallel_matcher_arrays(mesh) -> dict:
+    import jax.numpy as jnp
+
+    from mageslam_tpu.parallel.sharded_matching import make_sharded_guided_matcher
+
+    match = make_sharded_guided_matcher(mesh, axis="model")
+    out = {}
+    for name, P, N in MATCH_CASES:
+        args = [jnp.asarray(a) for a in matcher_case(P, N)]
+        got = np.asarray(match(*args, *MATCH_GATES))
+        out[f"mt_{name}_d8"] = got
+        print(f"matcher {name} ({P}, {N}): {int((got >= 0).sum())} matches")
+    return out
+
+
+def parallel_lm_arrays(mesh) -> dict:
+    """tests/test_parallel.py's `_problem` (RandomState(0)): one sharded LM
+    iteration, four chained, and the dense iteration."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.ba.schur import lm_iteration
+    from mageslam_tpu.parallel.sharded_ba import make_sharded_lm_iteration
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_parallel import TestShardedGlobalBA
+
+    p, st = TestShardedGlobalBA()._problem(np.random.RandomState(0))
+    hw = jnp.float32(1.5)
+    it = make_sharded_lm_iteration(mesh, axis="model")
+    out = _flatten("lm_p", p[:-1])
+    out.update(_flatten("lm_st", st))
+    one = it(p, st, hw)
+    out.update(_flatten("lm1_st", one.state))
+    out["lm1_cost"], out["lm1_accepted"] = np.asarray(one.cost), np.asarray(one.accepted)
+    dense = lm_iteration(p, st, hw)
+    out.update(_flatten("lmd_st", dense.state))
+    out["lmd_cost"], out["lmd_accepted"] = np.asarray(dense.cost), np.asarray(dense.accepted)
+    costs = []
+    for _ in range(4):
+        r = it(p, st, hw)
+        st = r.state
+        costs.append(float(r.cost))
+    out.update(_flatten("lm4_st", st))
+    out["lm4_costs"] = np.asarray(costs, np.float32)
+    print(f"sharded LM: one iteration cost {float(one.cost):.6g} (dense "
+          f"{float(dense.cost):.6g}), four {costs}")
+    return out
+
+
+def parallel_capacity_arrays(mesh) -> dict:
+    """tests/test_global_ba_capacity.py's full-budget window
+    (`build_capacity_map(RandomState(0))`): the window problem, the dense
+    and the sharded step's outputs at widths (2.0, 1.6)."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.ba import BAState
+    from mageslam_tpu.ba.step import step_bundle_adjust
+    from mageslam_tpu.config import Budgets
+    from mageslam_tpu.parallel.sharded_ba import make_sharded_step_bundle_adjust
+    from mageslam_tpu.worldmap.ba_window import build_local_ba_window
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_global_ba_capacity import build_capacity_map
+
+    b = Budgets()
+    m = build_capacity_map(np.random.RandomState(0))[0]
+    window = build_local_ba_window(m, jnp.int32(0), max_cams=b.MaxKeyframes,
+                                   max_points=b.MaxMapPoints,
+                                   max_obs=b.MaxGlobalBaObservations, global_window=True)
+    p = window.problem
+    st = BAState.from_problem(p)
+    widths = jnp.asarray([2.0, 1.6], jnp.float32)
+    out = _flatten("cap_p", p[:-1])
+    out["cap_widths"], out["cap_max_error_sq"] = np.asarray(widths), np.float32(16.0)
+    for name, step in (("dense", step_bundle_adjust),
+                       ("sharded", make_sharded_step_bundle_adjust(mesh))):
+        st2, mse, outliers = step(p, st, widths, jnp.float32(16.0))
+        out.update(_flatten(f"cap_{name}_st", st2))
+        out[f"cap_{name}_mse"], out[f"cap_{name}_out"] = np.asarray(mse), np.asarray(outliers)
+        print(f"capacity step {name}: mse {float(mse):.6g}, "
+              f"{int(np.asarray(outliers).sum())} outliers")
+    return out
+
+
+def parallel_batch_arrays(mesh, frames) -> dict:
+    """The JAX per-frame session from frame 30: session b holds its map and
+    history before frame 31 + b (after frame 30 + b) and the frame the
+    session built for it; batched_track_step over the 8 sessions."""
+    import jax
+    import jax.numpy as jnp
+
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.parallel import batched_track_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sess = run_to_snapshot(frames, os.path.join(tmp, "snap.npz"))
+    seen = []
+    core = sess._track_core
+
+    def recording_core(map_state, history, frame, *a):
+        seen.append((map_state, history, frame))
+        return core(map_state, history, frame, *a)
+
+    sess._track_core = recording_core
+    for i in range(SNAP_FRAME + 1, SNAP_FRAME + 1 + BATCH):
+        sess.process_frame(frames[i], i * DT, i)
+    sess._track_core = core
+    out = {}
+    for b, (m, h, f) in enumerate(seen):
+        for i, leaf in enumerate(jax.tree.flatten(m)[0]):
+            leaf = np.asarray(leaf)
+            if b == 0 or not np.array_equal(leaf, out[f"bt0_map{i}"]):
+                out[f"bt{b}_map{i}"] = leaf
+        out.update(_flatten(f"bt{b}_hist", h))
+        out.update(_flatten(f"bt{b}_frame", f))
+    stack = lambda trees: jax.tree.map(lambda *xs: jnp.stack(xs), *trees)  # noqa: E731
+    step, shard = batched_track_step(mesh, golden_path_settings(), 640.0, 480.0)
+    res = step(*(shard(stack([s[k] for s in seen])) for k in range(3)))
+    out["bt_R"], out["bt_t"] = np.asarray(res.frame.pose.R), np.asarray(res.frame.pose.t)
+    out["bt_succeeded"] = np.asarray(res.succeeded)
+    out["bt_tracked"] = np.asarray(res.tracked_count)
+    print(f"batched step: succeeded {out['bt_succeeded'].tolist()}, tracked "
+          f"{out['bt_tracked'].tolist()}")
+    return out
+
+
+def parallel_offload_arrays(frames) -> dict:
+    """The JAX session from frame 0 with a Determinator; from the frame-30
+    state `enable_mapping_offload(jax.devices()[1])` over frames
+    31..PARALLEL_LAST, then `fossilize(global_ba_steps=0)`."""
+    import jax
+    import jax.numpy as jnp
+
+    from mageslam_tpu.config import golden_path_settings
+    from mageslam_tpu.diagnostics import Determinator
+    from mageslam_tpu.runtime import SlamSession
+
+    det = Determinator()
+    sess = SlamSession(golden_path_settings(), cam=jnp.asarray(CAM, jnp.float32),
+                       image_width=640, image_height=480, determinator=det)
+    for i in range(SNAP_FRAME + 1):
+        sess.process_frame(frames[i], i * DT, i)
+    snap = _snapshot_arrays(sess)
+    with np.load(DEFAULT_OUT) as z:
+        differs = [k for k in snap if k != "meta_json" and not np.array_equal(z[k], snap[k])]
+    if differs:
+        raise RuntimeError(f"the session after frame {SNAP_FRAME} differs from "
+                           f"{os.path.basename(DEFAULT_OUT)}'s snapshot: {differs}")
+    n0 = len(det._stream)
+    sess.enable_mapping_offload(jax.devices()[1])
+    adoptions = []
+    adopt = sess._adopt_offloaded_mapping
+
+    def recording_adopt():
+        pending = sess._offload_pending
+        adopt()
+        if pending is not None:
+            adoptions.append((pending[2], {k: np.asarray(getattr(sess.map, k))
+                                           for k in OFFLOAD_MASKS}))
+
+    sess._adopt_offloaded_mapping = recording_adopt
+    out = record_window(sess, frames, SNAP_FRAME + 1, PARALLEL_LAST + 1)
+    out = {f"off_{k[4:]}": v for k, v in out.items()}
+    ids, mats = sess.fossilize(global_ba_steps=0)
+    out["off_fossil_ids"], out["off_fossil_mats"] = np.asarray(ids), np.asarray(mats)
+    out["off_names"], out["off_hashes"] = _checkpoints(det, n0)
+    out["off_adopt_frame"] = np.asarray([a[0] for a in adoptions], np.int32)
+    for j, (_, masks) in enumerate(adoptions):
+        for k, v in masks.items():
+            out[f"off_ad{j}_{k}"] = v
+    print(f"offload: keyframes at {out['off_frame_id'][out['off_is_kf']].tolist()}, "
+          f"adopted {out['off_adopt_frame'].tolist()}, {len(out['off_names'])} checkpoints")
+    return out
+
+
+def main_parallel(out_path: str = PARALLEL_OUT) -> None:
+    """The references of the port's parallel package and the session's
+    mapping offload (see `parallel` in the module docstring)."""
+    import jax
+    from jax.sharding import Mesh
+
+    jax.config.update("jax_platforms", "cpu")
+    if len(jax.devices()) < 8:
+        raise RuntimeError("needs 8 CPU devices: XLA_FLAGS="
+                           "--xla_force_host_platform_device_count=8")
+    mesh = Mesh(np.array(jax.devices()[:8]), ("model",))
+    frames = bench_frames(PARALLEL_LAST + 1)
+    arrays = parallel_matcher_arrays(mesh)
+    arrays.update(parallel_lm_arrays(mesh))
+    arrays.update(parallel_capacity_arrays(mesh))
+    arrays.update(parallel_batch_arrays(Mesh(np.array(jax.devices()[:8]), ("sessions",)),
+                                        frames))
+    arrays.update(parallel_offload_arrays(frames))
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes, {len(arrays)} arrays")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "stereo", "cameras", "vi", "stream", "diag", "ba", "all"):
+                     "stereo", "cameras", "vi", "stream", "diag", "ba", "parallel", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -2434,3 +2673,5 @@ if __name__ == "__main__":
         main_diag()
     if which in ("ba", "all"):
         main_ba()
+    if which in ("parallel", "all"):
+        main_parallel()
