@@ -47,15 +47,22 @@ Phases, each reported on its own line; any failure ends the run non-zero:
      or `torch._int_mm` of the ±1 bits, and the eager epilogue; no single
      PyTorch call computes it);
    - `csrc/local_best.cu` (the sharded matcher's per-shard best, argmin
-     and second, fused on the same tile) at P in LOCAL_BEST_ROWS x 512,
-     with ties inside and across blocks, a column tied over every row, no
-     valid row, every cell gated out and ragged row counts; timed at those
-     shapes beside its bound and the two composites of the TPU path
-     (hamming.cu or `torch._int_mm`, then the eager epilogue).
+     and second, fused on 1-bit tensor-core mmas; a thread-block cluster
+     of 8 for each 16 targets, merged in distributed shared memory) at P in
+     LOCAL_BEST_ROWS x 512, with ties inside and across blocks, a column
+     tied over every row, no valid row, every cell gated out, ragged row
+     counts, a cluster rank without rows, one tile, non-finite positions,
+     no valid target and the distance gate's ends; timed at those shapes
+     and the floor (32 x 512) beside its bound and the two composites of
+     the TPU path (hamming.cu or `torch._int_mm`, then the eager epilogue).
    Each call is timed with CUDA events in turns (kernel, plain, plain,
    kernel; 5 samples of 200 calls, of 20 for a plain version, which takes
    milliseconds a call), and each launch's device time is read from
-   torch.profiler.
+   torch.profiler; `local_best.cu` and the state digest (phase 14) also
+   from CUDA events over GRAPH_LAUNCHES back-to-back launches replayed from
+   one CUDA graph (the profiler has dropped late records), with their
+   wrappers' host µs piece by piece (tools/torch_host_path.py), and the
+   least launch (a one-element `add_`) the same ways.
 4. Slice: starts a session on the card from the committed JAX state
    (tests/data/torch_port_bench640_f30.npz: the benchmark world after frame
    30), tracks frames 31-54 through `SlamSession.process_frame`, and holds
@@ -242,11 +249,14 @@ Phases, each reported on its own line; any failure ends the run non-zero:
 14. Diagnostics, from tests/data/torch_port_diag.npz (`tools/
    export_jax_state.py diag`), the bag-of-words evaluation's 246 views
    rendered by spawned processes meanwhile:
-   - the state digest (`csrc/state_digest.cu`) held exactly against its
-     plain version, on the card and on the CPU, and against JAX's summary
-     column at three frames of the JAX stream call, and on all-zero,
-     all-NaN-bit, full-bank and one-keyframe cases; timed at the stream's
-     banks and the full ones beside its plain version and its bound;
+   - the state digest (`csrc/state_digest.cu`: one thread-block cluster,
+     merged in distributed shared memory) held exactly against its plain
+     version, on the card and on the CPU, and against JAX's summary column
+     at three frames of the JAX stream call, and on all-zero, all-NaN-bit,
+     full-bank and one-keyframe cases, word counts on both sides of its
+     strides, unaligned bases and a bank of 65,536 points; timed at the
+     stream's banks, the full ones, the floor (P = 1, K = 0) and 65,536
+     points beside its plain version and its bound;
    - the stream window 31-95 with a Determinator, launches counted from 0
      (a digest a chunk frame, every kernel of the path): the checkpoint
      names as the JAX call's, the integer trees' hashes equal; then again
@@ -591,6 +601,41 @@ def launch_us(fn, kernel_name: str, launches: int = 20) -> float | None:
     return None
 
 
+GRAPH_LAUNCHES = 1000   # back-to-back launches a CUDA graph replays for µs a launch
+HOST_CALLS = 500        # wrapper calls timed on the host clock, best of 5 runs
+
+
+def graph_us(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """Mean µs a call of `fn` from CUDA events around the replay of one CUDA
+    graph that holds `launches` back-to-back calls (captured once, so the
+    host's launch path stays out of the time), the median of `reps`
+    replays after a warm one. For a one-launch wrapper: its kernel's time
+    and the gap to the next kernel of the graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) * 1e3 / launches)
+    del graph
+    return statistics.median(times)
+
+
+def host_text(host: dict) -> str:
+    return ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
+
+
 def traced_pair(kernel, composite, kernel_name: str, calls: int = 20) -> dict:
     """One profiler session over `calls` calls of `kernel`, a marker kernel
     (`torch.cuda._sleep`'s spin kernel), then `calls` calls of the
@@ -732,9 +777,12 @@ def minimal_launch(device) -> dict:
     x = torch.zeros(1, device=device)
     us, names = call_device_us(lambda: x.add_(1))
     ms = cuda_ms(lambda: x.add_(1))
+    g_us = graph_us(lambda: x.add_(1))
     phase("kernel", f"minimal launch (one-element add_): {ms:.5f} ms a call (CUDA events), "
-                    f"device {us_text(us)} a launch ({', '.join(names)}) (profiler)")
-    return {"ms": ms, "device_us": us}
+                    f"device {us_text(us)} a launch ({', '.join(names)}) (profiler), "
+                    f"{g_us:.3f} us a launch (CUDA events, {GRAPH_LAUNCHES} launches of one "
+                    f"graph)")
+    return {"ms": ms, "device_us": us, "graph_us": g_us}
 
 
 def bow_case(rng: np.random.RandomState, rows: int, words: int = 64,
@@ -3999,49 +4047,109 @@ BOW_CEILINGS = {"cross_room": 0.25}
 BOW_METRIC_ATOL = 1 / 36     # one query of 36
 
 
+DIGEST_INPUTS = ("mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk")
+DIGEST_FLOOR = (1, 0)        # the least work: one point, no keyframe
+DIGEST_LARGE = (65536, 256)  # a bank 8x the budgets', every block of the cluster busy
+
+
+def digest_arrays(case: dict) -> list[np.ndarray]:
+    """The digest's numpy inputs; a case with `offset` starts its banks that
+    many rows into larger arrays (an unaligned base, as a row slice gives)."""
+    off = case.get("offset", 0)
+    return [np.asarray(case[k])[off:] if k != "fsk" else np.asarray(case[k])
+            for k in DIGEST_INPUTS]
+
+
 def digest_args(case: dict, device) -> tuple:
-    return tuple(torch.from_numpy(np.array(case[k])).to(device)
-                 for k in ("mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk"))
+    """The case's tensors on `device`; an offset case's banks are views of
+    the larger tensors there, so their base is not 16-byte aligned."""
+    off = case.get("offset", 0)
+    full = [torch.from_numpy(np.array(case[k])).to(device) for k in DIGEST_INPUTS]
+    return tuple(t[off:] if k != "fsk" else t for k, t in zip(DIGEST_INPUTS, full))
+
+
+def synthetic_digest_cases() -> dict:
+    """The digest's cases without JAX's: all-zero, all-NaN-bit and full
+    banks, edges (one word, no point), word counts on both sides of the
+    kernel's block and vector strides, unaligned bases and a bank every
+    block of the cluster reads."""
+    rng = np.random.RandomState(14)
+
+    def bank(P, K, fill=None, valid=0.7, fsk=3, offset=0):
+        pos = rng.randn(P + offset, 3).astype(np.float32) * 10
+        t = rng.randn(K + offset, 3).astype(np.float32)
+        if fill is not None:
+            pos = np.full((P + offset, 3), fill, np.uint32).view(np.float32)
+            t = np.full((K + offset, 3), fill, np.uint32).view(np.float32)
+        case = {"mp_pos": pos, "kf_t": t, "mp_valid": rng.rand(P + offset) < valid,
+                "kf_valid": rng.rand(K + offset) < valid, "fsk": np.int32(fsk)}
+        return {**case, "offset": offset} if offset else case
+
+    cases = {"zeros": bank(*DIGEST_BANKS[0], fill=0, valid=0.0, fsk=0),
+             "nan_bits": bank(*DIGEST_BANKS[0], fill=0xFFFFFFFF, valid=1.0, fsk=7),
+             "quiet_nan": bank(*DIGEST_BANKS[1], fill=0x7FC00000, valid=1.0, fsk=0),
+             "full": bank(*DIGEST_BANKS[1], fsk=12),
+             "full_all_valid": bank(*DIGEST_BANKS[1], valid=1.0, fsk=2**31 - 1),
+             "one_keyframe_no_point": bank(0, 1, fsk=1),
+             "floor_one_point": bank(*DIGEST_FLOOR, valid=1.0, fsk=5),
+             "keyframes_only_15_words": bank(0, 5, fsk=-3)}
+    # 4,096 words a block, 2,048 words a pass of a block's 16-byte loads
+    for P, K in ((682, 1), (1365, 0), (1365, 1), (2730, 2), (5461, 0)):
+        cases[f"straddle_{3 * (P + K)}_words"] = bank(P, K, fsk=P % 7)
+    cases["unaligned_rows"] = bank(*DIGEST_BANKS[0], offset=1, fsk=4)
+    cases["unaligned_full"] = bank(*DIGEST_BANKS[1], offset=3, valid=0.5, fsk=9)
+    cases["large_65536"] = bank(*DIGEST_LARGE, fsk=1)
+    return cases
 
 
 def digest_cases(ref: dict) -> dict:
     """The digest's exactness cases: the JAX stream call's inputs at three
-    frames (with JAX's value), all-zero, all-NaN-bit and full banks, and
-    edges (one word, no point)."""
-    rng = np.random.RandomState(14)
+    frames (with JAX's value), then the synthetic ones."""
     cases = {}
     for j, fid in enumerate(ref["dg_frames"].tolist()):
-        cases[f"jax_frame_{fid}"] = {k: ref[f"dg{j}_{k}"] for k in (
-            "mp_pos", "kf_t", "mp_valid", "kf_valid", "fsk", "digest")}
+        cases[f"jax_frame_{fid}"] = {k: ref[f"dg{j}_{k}"] for k in (*DIGEST_INPUTS, "digest")}
+    return {**cases, **synthetic_digest_cases()}
 
-    def bank(P, K, fill=None, valid=0.7, fsk=3):
-        pos = rng.randn(P, 3).astype(np.float32) * 10
-        t = rng.randn(K, 3).astype(np.float32)
-        if fill is not None:
-            pos = np.full((P, 3), fill, np.uint32).view(np.float32)
-            t = np.full((K, 3), fill, np.uint32).view(np.float32)
-        return {"mp_pos": pos, "kf_t": t, "mp_valid": rng.rand(P) < valid,
-                "kf_valid": rng.rand(K) < valid, "fsk": np.int32(fsk)}
 
-    cases["zeros"] = bank(*DIGEST_BANKS[0], fill=0, valid=0.0, fsk=0)
-    cases["nan_bits"] = bank(*DIGEST_BANKS[0], fill=0xFFFFFFFF, valid=1.0, fsk=7)
-    cases["quiet_nan"] = bank(*DIGEST_BANKS[1], fill=0x7FC00000, valid=1.0, fsk=0)
-    cases["full"] = bank(*DIGEST_BANKS[1], fsk=12)
-    cases["full_all_valid"] = bank(*DIGEST_BANKS[1], valid=1.0, fsk=2**31 - 1)
-    cases["one_keyframe_no_point"] = bank(0, 1, fsk=1)
-    return cases
+def time_state_digest(args: tuple, P: int, K: int) -> dict:
+    """The digest kernel at one bank: in turns with its plain version (CUDA
+    events), µs a launch from the profiler and from CUDA events over
+    GRAPH_LAUNCHES launches replayed from a CUDA graph, the wrapper's host
+    µs, and the bound."""
+    from mageslam_tpu_torch.ops import digest
+    from tools.torch_host_path import host_us, wrapper_pieces
+
+    t_kernel, t_plain, report = in_turns(lambda: digest.state_digest(*args),
+                                         lambda: digest.state_digest_plain(*args))
+    us = launch_us(lambda: digest.state_digest(*args), "state_digest_kernel",
+                   launches=DIGEST_TRACED)
+    g_us = graph_us(lambda: digest.state_digest(*args))
+    host = {k: host_us(f, HOST_CALLS) for k, f in wrapper_pieces(digest, args).items()}
+    plain_events = len(profile(lambda: digest.state_digest_plain(*args)))
+    bound_ms, bound_by = bound(4 * 3 * (P + K) + P + K + 4 + 4)
+    share = "" if us is None else f", {bound_ms * 1e3 / us:.4f} of the bound"
+    phase("kernel", f"state_digest at P={P}, K={K}: {report}; device {us_text(us)} a "
+                    f"launch (profiler, {DIGEST_TRACED} launches){share}, {g_us:.3f} us a "
+                    f"launch (CUDA events, {GRAPH_LAUNCHES} launches of one graph); wrapper "
+                    f"host {host_text(host)}; the plain version {plain_events} device "
+                    f"events a call; bound {bound_ms * 1e3:.3g} us ({bound_by})")
+    return {"ms": t_kernel, "plain_ms": t_plain, "device_us": us, "graph_us": g_us,
+            "host_us": host, "plain_device_events": plain_events, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def check_state_digest(device) -> dict:
     """Phase 14, the digest kernel: exact against its plain version (and
-    JAX's column on the fixture's frames), timed at the stream's bank and
-    the full one. Returns the stream bank's timing row and the error."""
+    JAX's column on the fixture's frames), timed at the stream's bank, the
+    full one, the floor and a large bank. Returns the timing rows and the
+    error."""
     from mageslam_tpu_torch.ops import digest
 
     ref = load_npz(DIAG_FIXTURE)
+    cases = digest_cases(ref)
     rows, bad = {}, []
     with KeptLaunches():
-        for name, case in digest_cases(ref).items():
+        for name, case in cases.items():
             args = digest_args(case, device)
             got = digest.state_digest(*args)
             torch.cuda.synchronize()
@@ -4052,23 +4160,14 @@ def check_state_digest(device) -> dict:
                 values.append(float(case["digest"]))
             if len(set(values)) != 1 or got.dtype != torch.float32:
                 bad.append((name, values))
-            phase("kernel", f"state_digest {name} (P={args[0].shape[0]}, K={args[1].shape[0]}): "
+            phase("kernel", f"state_digest {name} (P={args[0].shape[0]}, K={args[1].shape[0]}"
+                            f"{', base +%d rows' % case['offset'] if 'offset' in case else ''}): "
                             f"kernel, plain on the card, plain on the CPU"
                             f"{', JAX' if 'digest' in case else ''}: {values}")
-        for P, K in DIGEST_BANKS:
-            args = digest_args(digest_cases(ref)["full" if P == 8192 else "zeros"], device)
-            t_kernel, t_plain, report = in_turns(lambda: digest.state_digest(*args),
-                                                 lambda: digest.state_digest_plain(*args))
-            us = launch_us(lambda: digest.state_digest(*args), "state_digest_kernel",
-                           launches=DIGEST_TRACED)
-            plain_events = len(profile(lambda: digest.state_digest_plain(*args)))
-            bound_ms, bound_by = bound(4 * 3 * (P + K) + P + K + 4 + 4)
-            rows[f"{P}x{K}"] = {"ms": t_kernel, "plain_ms": t_plain, "device_us": us,
-                                "plain_device_events": plain_events, "bound_ms": bound_ms,
-                                "bound_by": bound_by}
-            phase("kernel", f"state_digest at P={P}, K={K}: {report}; device {us_text(us)} a "
-                            f"launch (profiler); the plain version {plain_events} device "
-                            f"events a call; bound {bound_ms * 1e3:.4f} us ({bound_by})")
+        named = {DIGEST_BANKS[0]: "zeros", DIGEST_BANKS[1]: "full", DIGEST_FLOOR: "floor_one_point",
+                 DIGEST_LARGE: "large_65536"}
+        for (P, K), name in named.items():
+            rows[f"{P}x{K}"] = time_state_digest(digest_args(cases[name], device), P, K)
     if bad:
         raise AssertionError(f"state_digest: kernel, plain and JAX disagree on {bad}")
     return {"rows": rows, "max_abs_err": 0}
@@ -4398,6 +4497,7 @@ PARALLEL_FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_parallel.npz"
 LOCAL_BEST_ROWS = (1024, 2048, 4096, 8192)   # P / d at P = 8192 over 8, 4, 2, 1 shards
 LOCAL_BEST_TARGETS = 512                     # Budgets.MaxFeatures
 LOCAL_BEST_RAGGED = ((1, 1), (17, 33), (1000, 512), (8191, 500))
+LOCAL_BEST_FLOOR = 32                        # rows of the floor shape: one tile on 4 ranks
 MATCHER_MESHES = (1, 2, 4)                   # copies of the card
 MATCH_GATES = (12.0, 45, 8)                  # radius, max_hamming, min_diff (test_parallel.py)
 CAP_SHARDS = 4
@@ -4424,10 +4524,20 @@ def matcher_case(P: int, N: int, seed: int = 0) -> list[np.ndarray]:
             np.ones((N,), bool)]
 
 
+def shard_case(p: int) -> list[np.ndarray]:
+    """Shard 0's rows of the budgets' case: matcher_case(8192, 512) cut to
+    its first p queries (the path's inputs at P / d = p)."""
+    case = matcher_case(8192, LOCAL_BEST_TARGETS)
+    return [a[:p] if k < 3 else a for k, a in enumerate(case)]
+
+
 def local_best_cases(rng: np.random.RandomState) -> list[tuple[str, list, float, int]]:
     """(name, numpy inputs, radius, max_hamming) of local_best's checks: the
     path's shapes, ties inside and across blocks, a column tied over every
-    row, no valid row, every cell gated out, ragged row counts."""
+    row, no valid row, every cell gated out, ragged row counts; then the
+    cluster's edges (a rank without rows, one tile, the floor shape),
+    non-finite positions, every target invalid and the distance gate's
+    ends."""
     cases = [(f"path {p}x{LOCAL_BEST_TARGETS}", matcher_case(p, LOCAL_BEST_TARGETS), 12.0, 45)
              for p in LOCAL_BEST_ROWS]
 
@@ -4448,6 +4558,25 @@ def local_best_cases(rng: np.random.RandomState) -> list[tuple[str, list, float,
     cases.append(("every cell gated out 2048x512", matcher_case(2048, 512), 12.0, -1))
     for p, n in LOCAL_BEST_RAGGED:
         cases.append((f"ragged {p}x{n}", low(p, n), 3.0, 200))
+    # a cluster splits the rows in 8 ranges of whole 8-row tiles: at 50 rows,
+    # ranks 0-5 take 8, rank 6 two and rank 7 none
+    cases.append(("a rank without rows 50x512", low(50, 512), 3.0, 200))
+    cases.append(("one tile 8x40", low(8, 40), 3.0, 200))
+    cases.append((f"floor {LOCAL_BEST_FLOOR}x512", shard_case(LOCAL_BEST_FLOOR), 12.0, 45))
+    odd = low(1024, 512)
+    for xy, n in ((odd[1], 1024), (odd[4], 512)):
+        pick = rng.rand(n)
+        xy[pick < 0.05, 0] = np.nan
+        xy[(pick >= 0.05) & (pick < 0.1), 1] = np.inf
+        xy[(pick >= 0.1) & (pick < 0.15), 0] = -np.inf
+    cases.append(("non-finite positions 1024x512", odd, 3.0, 200))
+    cases.append(("non-finite positions, infinite radius 1024x512",
+                  [a.copy() for a in odd], float(np.inf), 200))
+    no_target = low(1024, 512)
+    no_target[5][:] = False
+    cases.append(("no valid target 1024x512", no_target, 3.0, 200))
+    cases.append(("max_hamming 0 2048x512", matcher_case(2048, 512), 12.0, 0))
+    cases.append(("max_hamming 256 2048x512", low(2048, 512), 4.0, 256))
     return cases
 
 
@@ -4466,8 +4595,12 @@ def local_best_composite(args, radius, max_h, hamming_fn):
 
 def check_local_best(device) -> dict:
     """local_best.cu exactly against its plain version on every case, then
-    timed at the path's shapes."""
+    timed at the path's shapes and the floor: in turns with the plain
+    version, beside the composites, µs a launch from the profiler and from
+    CUDA events over GRAPH_LAUNCHES launches of one CUDA graph, and the
+    wrapper's host µs."""
     from mageslam_tpu_torch.ops import hamming, local_best
+    from tools.torch_host_path import host_us, wrapper_pieces
 
     rng = np.random.RandomState(15)
     max_err = 0
@@ -4488,9 +4621,8 @@ def check_local_best(device) -> dict:
                             f"{int((b < local_best.BIG).sum())} targets with a candidate, "
                             f"{int((got[2] == b).sum())} with second == best")
     rows = {}
-    for p in LOCAL_BEST_ROWS:
-        args = lb_tensors(matcher_case(8192, LOCAL_BEST_TARGETS), device)
-        args = [a[:p] if k < 3 else a for k, a in enumerate(args)]   # shard 0's rows
+    for p in LOCAL_BEST_ROWS + (LOCAL_BEST_FLOOR,):
+        args = lb_tensors(shard_case(p), device)
         radius, max_h = MATCH_GATES[:2]
         with KeptLaunches():
             t_kernel, t_plain, report = in_turns(
@@ -4506,17 +4638,23 @@ def check_local_best(device) -> dict:
                 raise AssertionError("local_best's _int_mm yardstick != hamming")
             t_int_mm = cuda_ms(lambda: local_best_composite(args, radius, max_h, int_mm))
             us = launch_us(lambda: local_best.local_best(*args, radius, max_h),
-                           "local_best_kernel")
+                           "local_best_kernel", launches=100)
+            g_us = graph_us(lambda: local_best.local_best(*args, radius, max_h))
+            host = {k: host_us(f, HOST_CALLS)
+                    for k, f in wrapper_pieces(local_best, args, radius, max_h).items()}
         n = LOCAL_BEST_TARGETS
         bound_ms, bound_by = bound(41 * (p + n) + 12 * n, int8_ops=2 * 256 * p * n)
         share = "not measured" if us is None else f"{bound_ms * 1e3 / us:.3f} of the bound"
         phase("kernel", f"local_best {p}x{n}: {report}; composites hamming.cu + eager epilogue "
                         f"{t_comp:.5f} ms, torch._int_mm + eager epilogue {t_int_mm:.5f} ms; "
-                        f"device {us_text(us)} a launch, {share}; bound "
-                        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+                        f"device {us_text(us)} a launch (profiler, 100 launches), {share}; "
+                        f"{g_us:.3f} us a launch (CUDA events, {GRAPH_LAUNCHES} launches of "
+                        f"one graph), {bound_ms * 1e3 / g_us:.3f} of the bound; wrapper host "
+                        f"{host_text(host)}; bound {bound_ms * 1e3:.3f} us ({bound_by})")
         rows[p] = {"shape": [p, n], "ms": t_kernel, "plain_ms": t_plain, "device_us": us,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "composite_hamming_kernel_ms": t_comp, "composite_int_mm_ms": t_int_mm}
+                   "graph_us": g_us, "host_us": host, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "composite_hamming_kernel_ms": t_comp,
+                   "composite_int_mm_ms": t_int_mm}
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -4972,7 +5110,8 @@ def main() -> int:
     lap("phase 15 (local_best, sharded matcher, sharded BA, batched step, mapping offload)")
 
     digest_row = {k: diag["digest"]["rows"]["2048x48"][k]
-                  for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_us")}
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_us", "graph_us",
+                            "host_us")}
     digest_row["device_us_on_path"] = diag["replay"]["cost"]["digest_us"]
     # the standalone kernel's top-level row: the synthetic (1024, 64), the
     # shape of the adoption's vocabulary call before bow_words.cu took it
@@ -5022,14 +5161,16 @@ def main() -> int:
         {"name": "local_best", "route": "cuda",
          "source": "mageslam_tpu_torch/csrc/local_best.cu",
          "replaces": "mageslam_tpu/ops/pallas_kernels.py:57", **launches("local_best"),
-         "max_abs_err": lb["max_abs_err"], **{k: lb_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                      "bound_by", "device_us",
-                                                      "composite_hamming_kernel_ms",
-                                                      "composite_int_mm_ms")},
+         "max_abs_err": lb["max_abs_err"],
+         **{k: lb_row[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "device_us", "graph_us", "host_us",
+                                   "composite_hamming_kernel_ms", "composite_int_mm_ms")},
          "library_ms": None,
          "note": "no single PyTorch call computes it; the composites of the TPU path "
                  "(hamming.cu or torch._int_mm, then the eager epilogue) are timed; top "
-                 "level: the full bank (8192, 512), one shard; rows: P / d at d = 8, 4, 2, 1",
+                 "level: the full bank (8192, 512), one shard; rows: P / d at d = 8, 4, 2, "
+                 "1 and the floor, 32 rows; device_us: profiler, graph_us: CUDA events "
+                 "over 1,000 launches of one graph",
          "rows": {f"{p}x{LOCAL_BEST_TARGETS}": r for p, r in lb["rows"].items()},
          "sharded_matcher_ms": par["matcher"]["ms"]},
         {"name": "radius_match", "route": "cuda",
@@ -5087,7 +5228,8 @@ def main() -> int:
          "bound_by": digest_row["bound_by"], "library_ms": None,
          "note": "no Pallas kernel: the XLA digest of the stream's scan body; no PyTorch "
                  "call XOR-reduces; top level: the stream window's banks (2048, 48); rows: "
-                 "those and the full banks (8192, 256); launched only with a Determinator",
+                 "those, the full banks (8192, 256), the floor (1, 0) and (65536, 256); "
+                 "launched only with a Determinator",
          "rows": diag["digest"]["rows"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

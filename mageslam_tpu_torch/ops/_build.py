@@ -4,9 +4,10 @@ Every `.cu` file under `mageslam_tpu_torch/csrc/` is compiled by `nvcc` for
 Hopper (`sm_90a`), one `nvcc` a file, all started together, and the objects
 are linked into one shared library with a plain C interface, under
 `mageslam_tpu_torch/_build/`; the `.cuh` headers there (`hamming_tile.cuh`,
-the tensor-core distance tile of `hamming.cu`, `two_way_match.cu`,
-`bow_words.cu` and `local_best.cu`) are included by them; `state_digest.cu`
-stands alone. The library's name
+the tensor-core distance tile of `hamming.cu`, `two_way_match.cu` and
+`bow_words.cu`, whose word loads `local_best.cu` shares; `cluster.cuh`, the
+thread-block-cluster merge of `local_best.cu` and `state_digest.cu`) are
+included by them. The library's name
 carries a hash of the sources, headers and flags, so an edited file
 rebuilds and an unchanged tree loads the existing library. A missing `nvcc`
 or a failed build raises.
@@ -118,15 +119,12 @@ def library() -> ctypes.CDLL:
         "mageslam_bow_assign": [ptr] * 4 + [i32] * 2 + [ptr],
         # desc, valid, anchors, out, scratch, n_rows, n_words, stream
         "mageslam_bow_vocab_step": [ptr] * 5 + [i32] * 2 + [ptr],
-        # mp_pos, kf_t, mp_valid, kf_valid, fsk, out, scratch, n_points,
-        # n_keyframes, stream
-        "mageslam_state_digest": [ptr] * 7 + [i32] * 2 + [ptr],
-        # q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, best, best_q, second,
-        # partials, tickets, radius, max_hamming, n_query, n_target, n_splits,
+        # mp_pos, kf_t, mp_valid, kf_valid, fsk, out, n_points, n_keyframes,
         # stream
-        "mageslam_local_best": [ptr] * 11 + [ctypes.c_float] + [i32] * 4 + [ptr],
-        # n_query, n_target
-        "mageslam_local_best_splits": [i32] * 2,
+        "mageslam_state_digest": [ptr] * 6 + [i32] * 2 + [ptr],
+        # q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, best, best_q, second,
+        # radius, max_hamming, n_query, n_target, stream
+        "mageslam_local_best": [ptr] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

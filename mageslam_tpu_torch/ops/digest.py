@@ -10,8 +10,10 @@ a replay gives the same digest whatever order the device sums in.
 
 CPU tensors take the plain version (`state_digest_plain`: int64 tensor
 code masked to 32 bits after every product, and an XOR fold by halving);
-CUDA tensors launch `csrc/state_digest.cu`, one launch a call, with no
-fallback between the two. `LAUNCHES` counts the launches.
+CUDA tensors launch `csrc/state_digest.cu`, one launch a call (one
+thread-block cluster merging in distributed shared memory: nothing is kept
+between calls), with no fallback between the two; a refused launch raises.
+`LAUNCHES` counts the launches.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ from . import _build
 
 LAUNCHES = 0
 _M32 = 0xFFFFFFFF
-_scratch: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -66,23 +67,10 @@ def _check(t: torch.Tensor, name: str, device: torch.device, dtype: torch.dtype,
         raise ValueError(f"state_digest: {name} must be contiguous")
 
 
-def _digest_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """Zeroed scratch (hash, two counts, ticket), one a (device, stream): the
-    kernel leaves it zero, so it is cleared once, when it is made."""
-    key = (device.index, stream)
-    with _build.CACHE_LOCK:
-        if key not in _scratch:
-            _scratch[key] = torch.zeros((4,), dtype=torch.int32, device=device)
-        return _scratch[key]
-
-
-def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tensor,
-                 kf_valid: torch.Tensor, fsk: torch.Tensor) -> torch.Tensor:
-    """(1,) float32 digest of the map: mp_pos (P, 3) float32, kf_t (K, 3)
-    float32 (the keyframes' translations), mp_valid (P,) and kf_valid (K,)
-    bool, fsk a one-element int32 tensor (frames since the last keyframe)."""
-    if all(t.device.type == "cpu" for t in (mp_pos, kf_t, mp_valid, kf_valid, fsk)):
-        return state_digest_plain(mp_pos, kf_t, mp_valid, kf_valid, fsk)
+def check_cuda(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tensor,
+               kf_valid: torch.Tensor, fsk: torch.Tensor) -> torch.device:
+    """The kernel's argument checks on CUDA tensors; returns the launch's
+    device."""
     device = mp_pos.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"state_digest: unsupported device {device} (the current CUDA "
@@ -95,13 +83,30 @@ def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tenso
     _check(fsk, "fsk", device, torch.int32, tuple(fsk.shape))
     if fsk.numel() != 1:
         raise ValueError(f"state_digest: fsk must hold one value, got {fsk.numel()}")
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    out = torch.empty((1,), dtype=torch.float32, device=device)
+    return device
+
+
+def launch(tensors, out: torch.Tensor) -> None:
+    """One launch of the kernel on checked CUDA `tensors` (mp_pos, kf_t,
+    mp_valid, kf_valid, fsk) into `out` (1,), on the current stream;
+    counted in LAUNCHES."""
+    mp_pos, kf_t = tensors[0], tensors[1]
     rc = _build.library().mageslam_state_digest(
-        mp_pos.data_ptr(), kf_t.data_ptr(), mp_valid.data_ptr(), kf_valid.data_ptr(),
-        fsk.data_ptr(), out.data_ptr(), _digest_scratch(device, stream).data_ptr(), P, K,
-        stream)
+        *(t.data_ptr() for t in tensors), out.data_ptr(), mp_pos.shape[0], kf_t.shape[0],
+        torch._C._cuda_getCurrentRawStream(mp_pos.device.index))
     if rc != 0:
         raise RuntimeError(f"state_digest kernel launch failed: cudaError {rc}")
     _build.count_launch(globals(), "LAUNCHES")
+
+
+def state_digest(mp_pos: torch.Tensor, kf_t: torch.Tensor, mp_valid: torch.Tensor,
+                 kf_valid: torch.Tensor, fsk: torch.Tensor) -> torch.Tensor:
+    """(1,) float32 digest of the map: mp_pos (P, 3) float32, kf_t (K, 3)
+    float32 (the keyframes' translations), mp_valid (P,) and kf_valid (K,)
+    bool, fsk a one-element int32 tensor (frames since the last keyframe)."""
+    tensors = (mp_pos, kf_t, mp_valid, kf_valid, fsk)
+    if all(t.device.type == "cpu" for t in tensors):
+        return state_digest_plain(*tensors)
+    out = torch.empty((1,), dtype=torch.float32, device=check_cuda(*tensors))
+    launch(tensors, out)
     return out

@@ -13,7 +13,9 @@ at most `max_hamming`.
 
 CPU tensors take `local_best_plain` (the (P, N) matrix from
 `hamming_matrix_plain`, the gate, argmin, min); CUDA tensors launch
-`csrc/local_best.cu` once a call, with no fallback between the two.
+`csrc/local_best.cu` once a call (a thread-block cluster for each 16
+targets, merging in distributed shared memory: nothing is kept between
+calls), with no fallback between the two; a refused launch raises.
 `LAUNCHES` counts the launches.
 """
 
@@ -27,8 +29,7 @@ from .hamming import WORDS, hamming_matrix_plain
 
 BIG = 1 << 20
 LAUNCHES = 0
-# the kernel's tickets, one zeroed array a (device, stream), left zero by it
-_tickets: dict[tuple[int, int], torch.Tensor] = {}
+_INVALID_VALUE = 1          # cudaErrorInvalidValue: the entry point refused its sizes
 
 
 def local_best_plain(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, radius, max_hamming: int):
@@ -64,25 +65,9 @@ def _check(t: torch.Tensor, name: str, device, dtype, shape) -> None:
         raise ValueError(f"local_best: {name} must be contiguous")
 
 
-def _ticket_buffer(device: torch.device, stream: int, groups: int) -> torch.Tensor:
-    """Zeroed tickets for this (device, stream), grown to `groups`; callers
-    on two threads (the session's mapping offload) share the cache."""
-    key = (device.index, stream)
-    with _build.CACHE_LOCK:
-        buf = _tickets.get(key)
-        if buf is None or buf.shape[0] < groups:
-            buf = _tickets[key] = torch.zeros((max(groups, 64),), dtype=torch.int32,
-                                              device=device)
-        return buf
-
-
-def local_best(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, radius, max_hamming: int):
-    """Per target, over the queries: (best (N,), best_q (N,), second (N,))
-    int32. q_desc (P, 8) / t_desc (N, 8) int32 descriptor words, q_xy (P, 2)
-    / t_xy (N, 2) float32, q_valid (P,) / t_valid (N,) bool, P >= 1."""
-    tensors = (q_desc, q_xy, q_valid, t_desc, t_xy, t_valid)
-    if all(t.device.type == "cpu" for t in tensors):
-        return local_best_plain(*tensors, radius, max_hamming)
+def check_cuda(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid) -> torch.device:
+    """The kernel's argument checks on CUDA tensors; returns the launch's
+    device."""
     device = q_desc.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"local_best: unsupported device {device} (the current CUDA "
@@ -99,19 +84,36 @@ def local_best(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, radius, max_hamming
         _check(t, name, device, dtype, shape)
     if (q_desc.data_ptr() | t_desc.data_ptr() | q_xy.data_ptr() | t_xy.data_ptr()) & 7:
         raise ValueError("local_best: descriptors and positions must be 8-byte aligned")
-    out = torch.empty((3, N), dtype=torch.int32, device=device)
-    if N == 0:
-        return out[0], out[1], out[2]
-    lib = _build.library()
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    splits = lib.mageslam_local_best_splits(P, N)
-    partials = torch.empty((splits, 3, N), dtype=torch.int32, device=device)
-    tickets = _ticket_buffer(device, stream, (N + 31) // 32)
-    rc = lib.mageslam_local_best(
+    return device
+
+
+def launch(tensors, out: torch.Tensor, radius, max_hamming: int) -> None:
+    """One launch of the kernel on checked CUDA `tensors` (q_desc, q_xy,
+    q_valid, t_desc, t_xy, t_valid) into `out` (3, N), on the current
+    stream; counted in LAUNCHES."""
+    q_desc, t_desc = tensors[0], tensors[3]
+    P, N = q_desc.shape[0], t_desc.shape[0]
+    rc = _build.library().mageslam_local_best(
         *(t.data_ptr() for t in tensors), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), partials.data_ptr(), tickets.data_ptr(), float(np.float32(radius)),
-        int(max_hamming), P, N, splits, stream)
+        out[2].data_ptr(), float(np.float32(radius)), int(max_hamming), P, N,
+        torch._C._cuda_getCurrentRawStream(q_desc.device.index))
+    if rc == _INVALID_VALUE:
+        raise ValueError(f"local_best: the kernel refused {P} query rows x {N} targets "
+                         f"(its keys hold a row in 22 bits)")
     if rc != 0:
         raise RuntimeError(f"local_best kernel launch failed: cudaError {rc}")
     _build.count_launch(globals(), "LAUNCHES")
+
+
+def local_best(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid, radius, max_hamming: int):
+    """Per target, over the queries: (best (N,), best_q (N,), second (N,))
+    int32. q_desc (P, 8) / t_desc (N, 8) int32 descriptor words, q_xy (P, 2)
+    / t_xy (N, 2) float32, q_valid (P,) / t_valid (N,) bool, P >= 1."""
+    tensors = (q_desc, q_xy, q_valid, t_desc, t_xy, t_valid)
+    if all(t.device.type == "cpu" for t in tensors):
+        return local_best_plain(*tensors, radius, max_hamming)
+    device = check_cuda(*tensors)
+    out = torch.empty((3, t_desc.shape[0]), dtype=torch.int32, device=device)
+    if t_desc.shape[0]:
+        launch(tensors, out, radius, max_hamming)
     return out[0], out[1], out[2]

@@ -12,7 +12,9 @@ fossilized map's queries; and the throughput and realtime entry points:
 the stream and pipelined calls against JAX's, the realtime gate, a disk
 snapshot continued on the card; and the diagnostics: the state digest
 kernel against its plain version and JAX's column, and a Determinator
-replay of the stream on the card.
+replay of the stream on the card; and the two cluster kernels (local_best,
+the digest) exact right after a refused launch and from two streams at
+once.
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -878,9 +880,28 @@ def test_state_digest_matches_plain_and_jax(cuda_device):
         if "digest" in case:
             want.add(float(case["digest"]))
         assert want == {float(got[0])}, name
-    # the scratch is left zero: the same call twice gives the same digest
-    args = chip_smoke.digest_args(chip_smoke.digest_cases(ref)["full"], cuda_device)
-    assert torch.equal(digest.state_digest(*args), digest.state_digest(*args))
+
+
+def test_state_digest_is_exact_right_after_a_refused_launch(cuda_device):
+    """Launches the C entry point refuses before any kernel runs (a negative
+    count, a bank past its limit) report an error, a call the wrapper
+    refuses raises, and the next call is exact. This covers refusals only:
+    a kernel that faults once started leaves the CUDA context unusable, so
+    no test here can follow one with another call."""
+    from mageslam_tpu_torch.ops import _build, digest
+
+    args = chip_smoke.digest_args(chip_smoke.synthetic_digest_cases()["full"], cuda_device)
+    out = torch.empty((1,), device=cuda_device)
+    stream = torch._C._cuda_getCurrentRawStream(cuda_device.index)
+    for n_points, n_keyframes in ((-1, 256), (8192, -1), (1 << 27, 256)):
+        assert _build.library().mageslam_state_digest(
+            *(t.data_ptr() for t in args), out.data_ptr(), n_points, n_keyframes, stream) != 0
+        got = digest.state_digest(*args)
+        assert float(got[0]) == float(digest.state_digest_plain(*args)[0])
+    with pytest.raises(ValueError):
+        digest.state_digest(args[0], args[1].cpu(), *args[2:])
+    got = digest.state_digest(*args)
+    assert float(got[0]) == float(digest.state_digest_plain(*args)[0])
 
 
 def test_state_digest_rejects_what_the_kernel_cannot_take(cuda_device):
@@ -947,6 +968,73 @@ def test_local_best_kernel_matches_plain(cuda_device):
         assert local_best.LAUNCHES == before + 1
         for g, w in zip(got, local_best.local_best_plain(*args, radius, max_h)):
             torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+def test_local_best_is_exact_right_after_a_refused_launch(cuda_device):
+    """Launches the C entry point refuses before any kernel runs (no row, a
+    bank past the keys' 22 row bits, no target) report an error, the
+    wrapper raises ValueError on a bank past the row bits, and the next call
+    is exact. This covers refusals only: a kernel that faults once started
+    leaves the CUDA context unusable, so no test here can follow one with
+    another call."""
+    from mageslam_tpu_torch.ops import _build, local_best
+
+    args = chip_smoke.lb_tensors(chip_smoke.shard_case(2048), cuda_device)
+    out = torch.empty((3, 512), dtype=torch.int32, device=cuda_device)
+    stream = torch._C._cuda_getCurrentRawStream(cuda_device.index)
+    want = local_best.local_best_plain(*args, 12.0, 45)
+    for n_query, n_target in ((0, 512), (1 << 22, 512), (2048, 0)):
+        assert _build.library().mageslam_local_best(
+            *(t.data_ptr() for t in args), *(o.data_ptr() for o in out), 12.0, 45, n_query,
+            n_target, stream) != 0
+        for g, w in zip(local_best.local_best(*args, 12.0, 45), want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    rows = 1 << 22
+    big = (torch.zeros((rows, 8), dtype=torch.int32, device=cuda_device),
+           torch.zeros((rows, 2), device=cuda_device),
+           torch.ones(rows, dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError, match="22 bits"):
+        local_best.local_best(*big, *args[3:], 12.0, 45)
+    del big
+    for g, w in zip(local_best.local_best(*args, 12.0, 45), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_cluster_kernels_agree_across_two_streams_at_once(cuda_device):
+    """local_best and the digest launched from two threads, each on its own
+    CUDA stream, at once (as the mapping offload's worker launches beside
+    the main thread): every answer equals the plain version's."""
+    import threading
+
+    from mageslam_tpu_torch.ops import digest, local_best
+
+    lb = chip_smoke.lb_tensors(chip_smoke.shard_case(4096), cuda_device)
+    cases = chip_smoke.synthetic_digest_cases()
+    dg = [chip_smoke.digest_args(cases[k], cuda_device) for k in ("full", "unaligned_rows")]
+    lb_want = local_best.local_best_plain(*lb, 12.0, 45)
+    dg_want = [float(digest.state_digest_plain(*a)[0]) for a in dg]
+    torch.cuda.synchronize()
+    outs = [[], []]
+
+    def launch(out: list) -> None:
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            for i in range(64):
+                out.append((local_best.local_best(*lb, 12.0, 45), digest.state_digest(*dg[i % 2])))
+        stream.synchronize()
+
+    workers = [threading.Thread(target=launch, args=(out,)) for out in outs]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    torch.cuda.synchronize()
+    for out in outs:
+        assert len(out) == 64
+        for i, (got, d) in enumerate(out):
+            for g, w in zip(got, lb_want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+            assert float(d[0]) == dg_want[i % 2]
 
 
 def test_local_best_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):

@@ -32,6 +32,7 @@ import dataclasses
 import filecmp
 import json
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +70,12 @@ DT = 0.033
 DTYPE_SITES = {"Init.Adopt.Bow": "anchors are int32 descriptor words here, uint32 in JAX"}
 # sites hashed equal to JAX's on these windows: integer and flag trees
 EXACT_SITES = ("Post.KeyframeDecision", "Mapping.Map")
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+
+# the digest's cases without JAX's value, as the card holds its kernel to them
+DIGEST_CASES = chip_smoke.synthetic_digest_cases()
 
 
 @pytest.fixture(scope="module")
@@ -239,6 +246,33 @@ def test_plain_digest_equals_jax_summary_column(ref, j):
     rows = ref["st_summary"].reshape(-1, 20)
     ids = np.arange(31, 31 + len(rows))
     assert rows[ids == frame, 19][0] == float(want)
+
+
+def numpy_digest(mp_pos, kf_t, mp_valid, kf_valid, fsk) -> float:
+    """mageslam_tpu/runtime/pipeline.py:1203-1216 in numpy's uint32
+    arithmetic (products wrap mod 2^32, as jnp.uint32's)."""
+    u32 = np.uint32
+    bits = np.concatenate([np.asarray(mp_pos, np.float32).reshape(-1),
+                           np.asarray(kf_t, np.float32).reshape(-1)]).view(u32)
+    idx = np.arange(bits.size, dtype=u32)
+    with np.errstate(over="ignore"):
+        mixed = (bits ^ (bits >> u32(16))) * (u32(2654435761) + idx * u32(2246822519))
+        h = u32(np.bitwise_xor.reduce(mixed, initial=u32(0)))
+        h ^= u32(np.count_nonzero(mp_valid)) * u32(2654435769)
+        h ^= np.asarray(fsk).astype(np.int32).astype(u32) * u32(40503)
+        h ^= u32(np.count_nonzero(kf_valid)) * u32(668265263)
+    return float(np.float32((h ^ (h >> u32(8))) & u32(0xFFFFFF)))
+
+
+@pytest.mark.parametrize("name", list(DIGEST_CASES))
+def test_plain_digest_equals_a_numpy_transcription(name):
+    """state_digest_plain (the CPU path of ops/digest.state_digest) on every
+    case chip_smoke.py holds the kernel to besides JAX's frames, the
+    unaligned ones as row slices of larger tensors."""
+    case = DIGEST_CASES[name]
+    got = state_digest(*chip_smoke.digest_args(case, "cpu"))
+    assert got.shape == (1,) and got.dtype == torch.float32
+    assert float(got[0]) == numpy_digest(*chip_smoke.digest_arrays(case)), name
 
 
 def test_digest_reads_every_input():

@@ -28,6 +28,7 @@ use virtual devices.
 import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -57,6 +58,9 @@ MATCH_SIZES = {"small": (512, 128), "full": (8192, 512)}
 GATES = (12.0, 45, 8)
 BATCH = 8
 MASKS = ("kf_valid", "mp_valid", "kf_assoc", "kf_member")
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -94,26 +98,41 @@ def test_sharded_matcher_equals_jax(ref, size, d):
     assert (want >= 0).sum() >= 32         # real matches found
 
 
-def test_local_best_plain_equals_the_per_target_loop():
+# the plain version's cases: tests/test_parallel.py's size, then the list
+# the card holds local_best.cu to (chip_smoke.py phase 3)
+LOCAL_BEST_CASES = [("small 512x128", [a.numpy() for a in matcher_case(*MATCH_SIZES["small"])],
+                     *GATES[:2])] + chip_smoke.local_best_cases(np.random.RandomState(15))
+
+
+@pytest.mark.parametrize("case", range(len(LOCAL_BEST_CASES)),
+                         ids=[c[0] for c in LOCAL_BEST_CASES])
+def test_local_best_plain_equals_the_per_target_loop(case):
     """The reference's oracle (tests/test_parallel.py:14-34), per target:
     argmin over the gated column, the second-best with that row set to BIG."""
-    q_desc, q_xy, q_valid, t_desc, t_xy, t_valid = matcher_case(*MATCH_SIZES["small"])
-    radius, max_h, _ = GATES
+    name, arrays, radius, max_h = LOCAL_BEST_CASES[case]
+    q_desc, q_xy, q_valid, t_desc, t_xy, t_valid = (torch.from_numpy(np.array(a))
+                                                    for a in arrays)
     best, best_q, second = local_best_plain(q_desc, q_xy, q_valid, t_desc, t_xy, t_valid,
                                             radius, max_h)
     d = hamming_matrix_plain(q_desc, t_desc).numpy().astype(np.float64)
-    dx = np.abs(q_xy.numpy()[:, None, 0] - t_xy.numpy()[None, :, 0])
-    dy = np.abs(q_xy.numpy()[:, None, 1] - t_xy.numpy()[None, :, 1])
-    ok = (dx <= radius) & (dy <= radius) & q_valid.numpy()[:, None] & t_valid.numpy()[None]
+    with np.errstate(invalid="ignore"):       # inf - inf: NaN, outside every box
+        dx = np.abs(q_xy.numpy()[:, None, 0] - t_xy.numpy()[None, :, 0])
+        dy = np.abs(q_xy.numpy()[:, None, 1] - t_xy.numpy()[None, :, 1])
+        r = np.float32(radius)
+        ok = (dx <= r) & (dy <= r) & q_valid.numpy()[:, None] & t_valid.numpy()[None]
     d = np.where(ok & (d <= max_h), d, float(BIG))
+    want = np.zeros((3, d.shape[1]), np.int64)
     for j in range(d.shape[1]):
         col = d[:, j]
         i = int(np.argmin(col))
         col2 = col.copy()
         col2[i] = float(BIG)
-        assert (int(best[j]), int(best_q[j]), int(second[j])) == (int(col[i]), i,
-                                                                    int(col2.min())), j
-    assert (best < BIG).sum() >= 32
+        want[:, j] = (int(col[i]), i, int(col2.min()))
+    for part, got, w in zip(("best", "best_q", "second"), (best, best_q, second), want):
+        assert got.dtype in (torch.int32, torch.int64), part
+        np.testing.assert_array_equal(got.numpy(), w, err_msg=f"{name}: {part}")
+    if name.startswith(("small", "path")):
+        assert (best < BIG).sum() >= 32         # real matches found
 
 
 def lm_problem(ref):

@@ -1,6 +1,14 @@
-"""Where the host time of one `hamming_matrix` call goes, on one GPU.
+"""Where the host time of one kernel wrapper's call goes, on one GPU.
 
-    python tools/torch_host_path.py [--n 1024] [--m 512] [--calls 5000]
+    python tools/torch_host_path.py [--kernel hamming] [--n 1024] [--m 512] [--calls 5000]
+    python tools/torch_host_path.py --kernel local_best --n 8192 --m 512
+    python tools/torch_host_path.py --kernel state_digest --n 2048 --m 48
+
+`--kernel local_best` (P = --n queries, N = --m targets) and `--kernel
+state_digest` (P = --n points, K = --m keyframes) time, on random inputs,
+the wrapper whole and its pieces (`wrapper_pieces`: the checks and the
+ctypes launch, the wrapper's own functions); chip_smoke.py reports the same
+pieces on its own inputs. The default, `hamming`:
 
 Times on the host clock, in microseconds a call (best of 5 runs of
 `--calls` calls each), every piece of the wrapper's launch path
@@ -31,7 +39,7 @@ import torch
 
 sys.path.insert(0, __file__.rsplit("/tools/", 1)[0])
 
-from mageslam_tpu_torch.ops import _build, hamming  # noqa: E402
+from mageslam_tpu_torch.ops import _build, digest, hamming, local_best  # noqa: E402
 
 
 def host_us(fn, calls: int, runs: int = 5) -> float:
@@ -62,8 +70,53 @@ def event_ms(fn, calls: int) -> float:
     return start.elapsed_time(stop) / calls
 
 
+def wrapper_pieces(module, args, *gates) -> dict:
+    """The host path of a cluster kernel's wrapper (`ops.local_best` with
+    `gates` = (radius, max_hamming), or `ops.digest`) on CUDA tensors
+    `args`: the whole call, and two of its pieces alone, each the module's
+    own function: `check_cuda` (the checks) and `launch` (the ctypes call
+    into an output made once). The rest of the whole is the output's
+    allocation and the dispatch."""
+    wrapper = module.local_best if module is local_best else module.state_digest
+    out = (torch.empty((3, args[3].shape[0]), dtype=torch.int32, device=args[0].device)
+           if module is local_best else torch.empty((1,), device=args[0].device))
+    return {"whole": lambda: wrapper(*args, *gates),
+            "checks": lambda: module.check_cuda(*args),
+            "ctypes launch": lambda: module.launch(args, out, *gates)}
+
+
+def cluster_kernel(kind: str, n: int, m: int, calls: int, device, card: str) -> int:
+    """--kernel local_best / state_digest: each piece's host µs, one JSON."""
+    rng = np.random.RandomState(0)
+    saved = (local_best.LAUNCHES, digest.LAUNCHES)   # measurement launches are not a path's
+    if kind == "local_best":
+        words = (torch.from_numpy(rng.randint(0, 2**32, (r, 8), dtype=np.uint64)
+                                  .astype(np.uint32).view(np.int32)) for r in (n, m))
+        q_desc, t_desc = (w.to(device) for w in words)
+        args = [q_desc, torch.from_numpy(rng.uniform(0, 300, (n, 2)).astype(np.float32)),
+                torch.from_numpy(rng.rand(n) > 0.1), t_desc,
+                torch.from_numpy(rng.uniform(0, 300, (m, 2)).astype(np.float32)),
+                torch.ones(m, dtype=torch.bool)]
+        pieces = wrapper_pieces(local_best, [a.to(device) for a in args], 12.0, 45)
+    else:
+        args = [torch.from_numpy(rng.randn(n, 3).astype(np.float32)),
+                torch.from_numpy(rng.randn(m, 3).astype(np.float32)),
+                torch.from_numpy(rng.rand(n) < 0.7), torch.from_numpy(rng.rand(m) < 0.7),
+                torch.tensor([3], dtype=torch.int32)]
+        pieces = wrapper_pieces(digest, [a.to(device) for a in args])
+    result = {"card": card, "kernel": kind, "shape": [n, m], "calls": calls,
+              "host_us": {k: host_us(f, calls) for k, f in pieces.items()}}
+    local_best.LAUNCHES, digest.LAUNCHES = saved
+    for k, v in result["host_us"].items():
+        print(f"[host] {kind} {k}: {v:.3f} us a call", flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("hamming", "local_best", "state_digest"),
+                    default="hamming")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--m", type=int, default=512)
     ap.add_argument("--calls", type=int, default=5000)
@@ -75,6 +128,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
+    if args.kernel != "hamming":
+        return cluster_kernel(args.kernel, args.n, args.m, args.calls, device, card)
     rng = np.random.RandomState(0)
     a, b = (torch.from_numpy(rng.randint(0, 2**32, (r, 8), dtype=np.uint64)
                              .astype(np.uint32).view(np.int32)).to(device)
