@@ -86,12 +86,12 @@ class ReplayDraws:
 
     @classmethod
     def from_npzs(cls, sources, device) -> "ReplayDraws":
-        """`from_npz` over several files: `sources` holds (path, kinds)
-        pairs, each kind read from one of them (a run whose init draws are
-        another recorded run's)."""
+        """`from_npz` over several files: `sources` holds (path, kinds) or
+        (path, kinds, prefix), each kind read from one of them (a run whose
+        init draws are another recorded run's)."""
         draws = {}
-        for path, kinds in sources:
-            queues = cls.from_npz(path, "cpu", kinds).queues
+        for path, kinds, *prefix in sources:
+            queues = cls.from_npz(path, "cpu", kinds, *prefix).queues
             draws.update({k: queues[k] for k in kinds})
         return cls(draws, device)
 

@@ -1,6 +1,7 @@
 """The port's camera models, device presets, dense undistortion and stereo
 rescale against the JAX package (and OpenCV where tests/test_camera_geometry.py
-and tests/test_undistort.py use it), and the port's session on a distorted
+and tests/test_undistort.py use it: the distortion models, the remap and
+the rescale, at those tests' tolerances), and the port's session on a distorted
 camera against the JAX session.
 
 Tolerances: `k_matrix` and the presets' vectors exact; the camera models
@@ -231,6 +232,43 @@ def test_rescale_image_matches_jax(rng):
         np.testing.assert_allclose(undistort.rescale_image(T(img), s, H, W).numpy(),
                                    np.asarray(jund.rescale_image(jnp.asarray(img), s, H, W)),
                                    atol=1e-3)
+
+
+def test_undistort_image_matches_cv2_remap(rng):
+    """tests/test_undistort.py:32's OpenCV oracle and tolerances on the
+    port: ImagePreprocessor::UndistortImage's recipe (fx, fy kept, the
+    principal point at the image center) through initUndistortRectifyMap
+    and remap; away from the border (border policies differ) the median
+    error under 0.5 and the 99th percentile under 4 gray levels."""
+    cam = camera.make_poly3k(260.0, 262.0, 150.0, 125.0, K1, K2, K3, P1, P2, W, H)
+    img = make_image(rng)
+    out, und_cal = undistort.undistort_image(T(img), cam)
+    Km = np.array([[260.0, 0, 150.0], [0, 262.0, 125.0], [0, 0, 1]])
+    Kn = Km.copy()
+    Kn[0, 2], Kn[1, 2] = W * 0.5, H * 0.5
+    dist = np.array([K1, K2, P1, P2, K3])          # cv2 order
+    m1, m2 = cv2.initUndistortRectifyMap(Km, dist, None, Kn, (W, H), cv2.CV_32FC1)
+    want = cv2.remap(img, m1, m2, cv2.INTER_LINEAR)
+    inner = (slice(10, H - 10), slice(10, W - 10))
+    err = np.abs(out.numpy()[inner] - want[inner])
+    assert np.median(err) < 0.5, np.median(err)
+    assert np.percentile(err, 99) < 4.0, np.percentile(err, 99)
+    uc = und_cal.numpy()
+    assert uc[0] == 260.0 and uc[1] == 262.0
+    assert uc[2] == W * 0.5 and uc[3] == H * 0.5
+    assert uc[14] == 0.0     # pinhole
+
+
+def test_rescale_image_matches_cv2_resize(rng):
+    """tests/test_undistort.py:91's oracle and tolerance on the port: half
+    scale against cv2.resize (INTER_LINEAR); the sampling grids differ by
+    half a pixel, so the inner median error stays under 6 gray levels."""
+    img = make_image(rng)
+    out = undistort.rescale_image(T(img), 0.5, H, W).numpy()
+    want = cv2.resize(img, (W // 2, H // 2), interpolation=cv2.INTER_LINEAR)
+    got = out[: H // 2, : W // 2]
+    inner = (slice(4, H // 2 - 4), slice(4, W // 2 - 4))
+    assert np.median(np.abs(got[inner] - want[inner])) < 6.0
 
 
 def settings_with(undistort_pixels=None, **fes):

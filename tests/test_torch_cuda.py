@@ -14,7 +14,9 @@ snapshot continued on the card; and the diagnostics: the state digest
 kernel against its plain version and JAX's column, and a Determinator
 replay of the stream on the card; and the two cluster kernels (local_best,
 the digest) exact right after a refused launch and from two streams at
-once.
+once; and three pyramid levels (the pyramid against the CPU's, the session
+from frame 0 and a relocalization against JAX's) and the FUSER3DOF and
+FUSER6DOF sessions against JAX's (chip_smoke.py phase 16).
 
 Every test here is marked `cuda` and skips where torch.cuda.is_available()
 is false. This file imports no JAX, so on a machine with a GPU and no JAX
@@ -1076,3 +1078,45 @@ def test_offload_on_a_second_stream_follows_jax(cuda_device):
     chip_smoke.check_window(results, ref)
     assert [f for f, _ in adoptions] == [r.frame_id for r in results if r.is_keyframe]
     assert sess._offload_stream is not None and sess._offload_pending is None
+
+
+# --------------------------------------- three levels, the other filters ----
+
+def test_pyramid_on_the_card_equals_the_cpu(cuda_device):
+    """The three-level pyramid on the card equals the CPU's and JAX's (as
+    tests/data/torch_port_levels.npz records it) bit for bit at 640x480,
+    320x180 and 160x120."""
+    chip_smoke.check_pyramid(cuda_device)
+
+
+def test_levels_session_on_the_card_matches_jax(cuda_device):
+    """The three-level session from frame 0 on bench frames 0-51 (chip_smoke.py
+    phase 16): states, keyframe flags, poses (1e-3, t scaled), tracked
+    counts and octave histograms (3), the masks after each mapping event,
+    the launches of each frame's class; every kernel call exact, some of
+    the radius matches on octaves other than 0."""
+    calls, faults = [], []
+    chip_smoke.hold_levels_session(cuda_device, calls, faults)
+    assert not faults, faults
+    chip_smoke.hold_path_calls(calls, "the three-level session")
+    assert chip_smoke.octave_calls(calls)["radius"][1] > 0
+
+
+def test_levels_relocalization_on_the_card_matches_jax(cuda_device):
+    """tests/test_bow_reloc.py's scene at three levels from the JAX state
+    after frame 29: lost, relocalized at 35 as JAX."""
+    calls, faults = [], []
+    chip_smoke.check_levels_reloc(cuda_device, calls, faults)
+    assert not faults, faults
+    chip_smoke.hold_path_calls(calls, "the three-level relocalization")
+
+
+@pytest.mark.parametrize("prefix,name", chip_smoke.VI_FILTER_RUNS)
+def test_vi_filter_session_on_the_card_matches_jax(cuda_device, prefix, name):
+    """The 80-frame VI session under FUSER3DOF / FUSER6DOF on the card
+    against the JAX run: modes, frames, scale, priors, covariances, filter
+    state and masks, photoreal frame 71's borderline inliers held to their
+    logged ceilings (ROADMAP queue 3)."""
+    calls, faults = [], []
+    chip_smoke.run_vi_filter(cuda_device, prefix, name, calls, faults)
+    assert not faults, faults

@@ -10,6 +10,7 @@ differ in more than 2 bits. Undistorted positions: atol 1e-4 px.
 
 import torch_threads  # noqa: F401  (first: torch's OpenMP threads wait passively)
 
+import os
 import sys
 
 import numpy as np
@@ -33,6 +34,8 @@ torch.set_num_threads(2)
 
 FES = golden_path_settings().MonoSettings.MonoCamera.FeatureExtractorSettings
 SIZES = ["640x480", "160x120"]
+LEVELS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                              "torch_port_levels.npz")
 
 
 @pytest.fixture(scope="module")
@@ -146,10 +149,17 @@ def test_detect_and_compute(frames, size):
 
 
 def test_pyramid_levels_close(frames):
+    """Bit for bit against JAX's pyramid of this image as
+    tests/data/torch_port_levels.npz records it (`pyr_bench160_*`, with the
+    jax / jaxlib build and the CPU that computed it: XLA:CPU's code decides
+    the last bits), and within 1e-3 of this host's JAX."""
     img = frames["160x120"]
     want = jimage.build_pyramid(jnp.asarray(img), 3, 1.5)
     got = image.build_pyramid(torch.from_numpy(img), 3, 1.5)
     assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
-    for g, w in zip(got, want):
+    with np.load(LEVELS_FIXTURE) as z:
+        recorded = [img] + [z[f"pyr_bench160_{lv}"] for lv in (1, 2)]
+    for g, w, r in zip(got, want, recorded):
+        np.testing.assert_array_equal(g.numpy(), r)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
     assert image.features_per_level(440, 3, 1.5) == jimage.features_per_level(440, 3, 1.5)

@@ -4,9 +4,11 @@ the JAX functions, with the JAX keys' Gumbel draws injected.
 - `try_initialize_pair` at full width on the three attempts the JAX session
   made on the benchmark world (tests/data/torch_port_bench640_init.npz,
   written by `tools/export_jax_state.py init` and checked against a live JAX
-  run in tests/test_torch_session.py), and live against JAX on a synthetic
-  two-view scene (N = 120, 64 hypotheses), a pure rotation and unrelated
-  descriptors, both of which must fail.
+  run in tests/test_torch_session.py), and against JAX's results on a
+  synthetic two-view scene (N = 120, 64 hypotheses), a pure rotation and
+  unrelated descriptors, both of which must fail (the draws of
+  PRNGKey(0) and JAX's results in tests/data/torch_port_init_checks.npz,
+  `tools/export_jax_state.py init_checks`).
 - `validate_third_frame` live against JAX on the adoption's result and the
   middle frame the session checked it on.
 
@@ -29,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from mageslam_tpu.geometry.se3 import Pose as JPose
@@ -41,6 +42,7 @@ from mageslam_tpu_torch.tracking import map_init as tm
 torch.set_num_threads(2)
 
 FIXTURE = "tests/data/torch_port_bench640_init.npz"
+CHECKS = "tests/data/torch_port_init_checks.npz"
 CAM = np.array([520.0, 520.0, 320.0, 240.0], np.float32)
 R_ATOL = 1e-3
 DIR_ATOL = 1e-3
@@ -50,12 +52,6 @@ def t_of(a: np.ndarray) -> torch.Tensor:
     """numpy → tensor, uint32 descriptor words as their int32 bit view."""
     return torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32
                                                  else a))
-
-
-def init_draws(key, batch: int, n: int) -> np.ndarray:
-    """The (batch, 5, n) Gumbel draws try_initialize_pair makes from `key`."""
-    keys = jax.random.split(key, batch)
-    return np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (5, n)))(keys), np.float32)
 
 
 def direction(t) -> np.ndarray:
@@ -170,26 +166,29 @@ def synthetic_pair(case: str, n: int = 120):
     return uv1, desc, uv2[perm], desc[perm], K
 
 
+@pytest.fixture(scope="module")
+def checks():
+    with np.load(CHECKS) as z:
+        return {k: z[k] for k in z.files}
+
+
 @pytest.mark.parametrize("case", ["two_view", "pure_rotation", "unrelated"])
-def test_synthetic_pair_against_jax(case):
+def test_synthetic_pair_against_jax(checks, case):
     xy1, desc1, xy2, desc2, K = synthetic_pair(case)
     n = xy1.shape[0]
     valid = np.ones(n, bool)
-    key = jax.random.PRNGKey(0)
-    jr = jm.try_initialize_pair(jnp.asarray(xy1), jnp.asarray(desc1), jnp.asarray(valid),
-                                jnp.asarray(xy2), jnp.asarray(desc2), jnp.asarray(valid),
-                                jnp.asarray(K), key, jm.InitSettings(), ransac_batch=64)
+    want = {k[len(case) + 4:]: v for k, v in checks.items() if k.startswith(f"sp_{case}_")}
     tr = tm.try_initialize_pair(t_of(xy1), t_of(desc1), t_of(valid), t_of(xy2), t_of(desc2),
                                 t_of(valid), torch.from_numpy(K),
-                                torch.from_numpy(init_draws(key, 64, n)), tm.InitSettings())
-    assert bool(tr.succeeded) == bool(jr.succeeded) == (case == "two_view")
-    assert int(tr.match_count) == int(jr.match_count)
+                                torch.from_numpy(checks["sp_draws"]), tm.InitSettings())
+    assert bool(tr.succeeded) == bool(want["succeeded"]) == (case == "two_view")
+    assert int(tr.match_count) == int(want["match_count"])
     if case != "two_view":
         assert not tr.point_valid.any()
         return
-    matched = np.asarray(jr.feat2) != 0
-    np.testing.assert_array_equal(tr.feat2.numpy()[matched], np.asarray(jr.feat2)[matched])
-    np.testing.assert_allclose(tr.pose2.R.numpy(), np.asarray(jr.pose2.R), atol=R_ATOL)
-    np.testing.assert_allclose(direction(tr.pose2.t.numpy()), direction(jr.pose2.t),
+    matched = want["feat2"] != 0
+    np.testing.assert_array_equal(tr.feat2.numpy()[matched], want["feat2"][matched])
+    np.testing.assert_allclose(tr.pose2.R.numpy(), want["R"], atol=R_ATOL)
+    np.testing.assert_allclose(direction(tr.pose2.t.numpy()), direction(want["t"]),
                                atol=DIR_ATOL)
-    assert (tr.point_valid.numpy() != np.asarray(jr.point_valid)).sum() <= 3
+    assert (tr.point_valid.numpy() != want["point_valid"]).sum() <= 3

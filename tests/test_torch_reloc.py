@@ -39,6 +39,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_port_reloc.npz")
+CHECKS = os.path.join(REPO, "tests", "data", "torch_port_init_checks.npz")
 SNAP_FRAME = 29
 
 
@@ -173,11 +174,9 @@ def test_mono_init_verdict_moves_with_float_width(ref):
     """ROADMAP queue 3 (found, not a fault): on this scene the JAX session's
     init attempts fail at frames 6 and 7 and adopt at 8 in float32; the
     reference's own attempt at frame 7 succeeds in float64 (its recorded
-    draws, `jax.enable_x64`), and the port (its 5-point solve in float64)
-    succeeds at 6. The gates decide these borderline attempts by rounding;
+    draws, `jax.enable_x64`; tests/data/torch_port_init_checks.npz), and
+    the port (its 5-point solve in float64) succeeds at 6. The gates decide these borderline attempts by rounding;
     the tests start relocalization from the JAX state after frame 29."""
-    from mageslam_tpu.ba import problem as jax_problem
-    from mageslam_tpu.tracking import map_init as jax_map_init
     from mageslam_tpu_torch.tracking import map_init
 
     names = ("xy1", "desc1", "valid1", "xy2", "desc2", "valid2")
@@ -191,28 +190,9 @@ def test_mono_init_verdict_moves_with_float_width(ref):
                                        settings)
     assert bool(res.succeeded) and int(res.point_valid.sum()) == 276
 
-    p = att[7]
-    gumbel, from_problem = jax.random.gumbel, jax_problem.BAState.from_problem
-
-    def state64(problem, user_lambda=-1.0):   # the reference pins lambda to float32
-        f = problem.points.dtype
-        return jax_problem.BAState(poses=problem.poses, points=problem.points,
-                                   lam=jnp.asarray(user_lambda, f), ni=jnp.asarray(2.0, f),
-                                   obs_info=problem.obs_info)
-
-    with jax.enable_x64(True):
-        # the recorded float32 draws, widened: the same samples
-        jax.random.gumbel = lambda key, shape, dtype=None: gumbel(
-            key, shape, jnp.float32).astype(jnp.float64)
-        jax_problem.BAState.from_problem = staticmethod(state64)
-        try:
-            args = [jnp.asarray(ref[p + n].astype(np.float64) if ref[p + n].dtype == np.float32
-                                else ref[p + n]) for n in names]
-            out = jax_map_init.try_initialize_pair(
-                *args, jnp.asarray(ref["cam"].astype(np.float64)), jnp.asarray(ref[p + "key"]),
-                jax_map_init.InitSettings(*settings), ransac_batch=ref[p + "draws"].shape[0])
-            assert out.points.dtype == jnp.float64
-            assert bool(out.succeeded) and int(out.point_valid.sum()) == 276
-        finally:
-            jax.random.gumbel = gumbel
-            jax_problem.BAState.from_problem = staticmethod(from_problem)
+    # the reference's own attempt at frame 7 in float64, as `tools/
+    # export_jax_state.py init_checks` solved it (the recorded float32 draws
+    # widened, the LM's lambda in float64)
+    with np.load(CHECKS) as z:
+        assert z["fw_dtype"].item() == b"float64"
+        assert bool(z["fw_succeeded"]) and int(z["fw_points"]) == 276

@@ -191,7 +191,37 @@ devices (`XLA_FLAGS=--xla_force_host_platform_device_count=8`):
   outputs, the map's masks after each adoption, the trajectory and the
   checkpoints from frame 31 (`off_*`) (~5 min).
 
-    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|diag|ba|parallel|all]
+Two more hold the references of three pyramid levels and of the
+visual-inertial session under its other two filters:
+
+- `levels`: golden settings with NumLevels 3 and ScaleFactor 1.5
+  (`SessionRecorder`, plus each frame's associations `ref_assoc` and the
+  octave histogram of its associated keypoints `ref_octave_hist`):
+  bench.py's frames at 640x480 from frame 0 until `LEVELS_EVENTS`
+  keyframes have been mapped and `MAP_TAIL` more frames tracked, and
+  `detect_and_compute` at three levels on bench frame 31, its 160x120 crop
+  and photoreal frame 10 (`fe_*`), the pyramids of those images, the
+  octave arithmetic on its rounding boundaries and the per-level budgets,
+  with the jax / jaxlib versions and the CPU's features that produced them
+  (`levels_reference_arrays`). When that session relocalizes no lost
+  frame, a second file holds tests/test_bow_reloc.py's lost-and-relocalize
+  scene (as `reloc`: its snapshot after frame 29 as the file's own keys,
+  the features of frames 30-37) with each point given an octave in 0..2 as
+  tests/test_pipeline.py's three-level test gives them (~4 min);
+- `vi_filters`: apps/vi_eval.py's run as `vi` records it (per-frame
+  results, fuser mode, metric scale, EKF state, priors, covariances, the
+  arguments given to `Fuser.process_frame`, the map's masks after each
+  mapping event, its relocalizations' draws) with FilterType FUSER3DOF
+  (`f3_*`) and FUSER6DOF (`f6_*`) (~4 min).
+
+One more holds the JAX side of two mono-init checks:
+
+- `init_checks`: tests/test_torch_map_init.py's synthetic pairs (two
+  views, a pure rotation, unrelated descriptors: the draws of PRNGKey(0)
+  and `try_initialize_pair`'s result) and tests/test_torch_reloc.py's
+  attempt at frame 7 of the `reloc` scene in float64 (~40 s).
+
+    python tools/export_jax_state.py [track|map|both|bow|init|photoreal|reloc|loop|stereo|cameras|vi|stream|diag|ba|parallel|levels|vi_filters|init_checks|all]
 
 `both` is track and map, `all` every file. Outputs:
 tests/data/torch_port_bench640_f30.npz (track),
@@ -206,7 +236,10 @@ tests/data/torch_port_cameras.npz, torch_port_cameras_kp.npz and
 torch_port_orient.npz (cameras), tests/data/torch_port_vi.npz (vi),
 tests/data/torch_port_stream.npz (stream), tests/data/torch_port_diag.npz
 (diag), tests/data/torch_port_ba.npz (ba), tests/data/torch_port_parallel.npz
-(parallel).
+(parallel), tests/data/torch_port_levels.npz and
+torch_port_levels_reloc.npz (levels),
+tests/data/torch_port_vi_filters.npz (vi_filters),
+tests/data/torch_port_init_checks.npz (init_checks).
 """
 
 from __future__ import annotations
@@ -1554,31 +1587,24 @@ def photoreal_end_state() -> dict:
     return arrays
 
 
-def main_vi(out_path: str = VI_OUT) -> None:
+def vi_session(filter_name: str, photo: dict, imu):
+    """apps/vi_eval.py's run with `filter_name` on the photoreal fixture's
+    frames: the session, its recorders' arrays (draws checked equal to
+    the photoreal run's; the relocalizations' kept), its per-frame results,
+    the fuser's trace, covariances and calls, and the map's masks after
+    each mapping event."""
     import dataclasses
 
-    import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_platforms", "cpu")
-    sys.path.insert(0, REPO)
-    from mageslam_tpu.apps.evaluate import ate_rmse
-    from mageslam_tpu.apps.render_scene import CX, CY, FX, FY, render_sequence
+    from mageslam_tpu.apps.render_scene import CX, CY, FX, FY
     from mageslam_tpu.config import FilterType, golden_path_settings
     from mageslam_tpu.runtime import SlamSession
-    from mageslam_tpu.runtime.fossilized import FossilizedMap
 
     W, H = PHOTOREAL_SIZE
-    with np.load(PHOTOREAL_OUT) as z:
-        photo = {k: z[k] for k in z.files}
-    # the photoreal fixture's frames are apps/vi_eval.py's default sequence
-    for i, (img, *_) in enumerate(render_sequence(VI_FRAMES, W, H)):
-        if not np.array_equal(img, photo["frames"][i]):
-            raise SystemExit(f"frame {i} of render_sequence({VI_FRAMES}, {W}, {H}) differs "
-                             f"from the photoreal fixture's")
     s = golden_path_settings()
     s = dataclasses.replace(s, FuserSettings=dataclasses.replace(
-        s.FuserSettings, UseFuser=True, FilterType=FilterType.SIMPLE6DOF))
+        s.FuserSettings, UseFuser=True, FilterType=getattr(FilterType, filter_name)))
     sx, sy = W / 640.0, H / 480.0
     cam = np.asarray([FX * sx, FY * sy, CX * sx, CY * sy], np.float32)
     sess = SlamSession(s, cam=jnp.asarray(cam), image_width=W, image_height=H)
@@ -1620,7 +1646,6 @@ def main_vi(out_path: str = VI_OUT) -> None:
 
     sess._imu_prior, sess._estimate_cov_packed = imu_prior, packed
     sess.fuser.process_frame, sess.fuser.on_mage_initialized = process, on_init
-    imu = vi_imu()
     it = 0
     try:
         for i in range(VI_FRAMES):
@@ -1641,18 +1666,16 @@ def main_vi(out_path: str = VI_OUT) -> None:
     # relocalizations' are stored
     for k, v in rec.result().items():
         if k.endswith("_draws") and not np.array_equal(v, photo.get(k)):
-            raise SystemExit(f"the VI session's {k} differ from the photoreal run's")
+            raise SystemExit(f"the {filter_name} session's {k} differ from the photoreal run's")
     arrays.update(rrec.result())
     arrays.update(session_refs(sess))
     arrays.update(trace.arrays)
     arrays["ev_frame_id"] = np.asarray([e[0] for e in events], np.int32)
     for j, (_, masks) in enumerate(events):
         arrays.update({f"ev{j}_{n}": v for n, v in masks.items()})
-    arrays["adopt_frame"] = np.int32(adopted[0])
+    arrays["adopt_frame"] = np.int32(adopted[0] if adopted else -1)
     arrays["map_scale"] = np.float32(sess.map_scale)
     arrays["cam"] = cam
-    arrays["imu_sha256"] = imu_digest(imu)
-    arrays["imu_n"] = np.int32(len(imu))
     n = VI_FRAMES
     arrays["cov"], arrays["cov_ok"] = _nan((n, 6, 6)), np.full(n, -1, np.int32)
     for i, (c, ok) in covs.items():
@@ -1667,6 +1690,37 @@ def main_vi(out_path: str = VI_OUT) -> None:
             arrays["call_pose"][i], arrays["call_R"][i], arrays["call_t"][i] = True, R, t
         if c is not None:
             arrays["call_cov"][i] = c
+    return sess, arrays, calls, adopted, rrec.detections
+
+
+def vi_photo() -> dict:
+    """The photoreal fixture, its frames checked to be apps/vi_eval.py's
+    default sequence."""
+    from mageslam_tpu.apps.render_scene import render_sequence
+
+    W, H = PHOTOREAL_SIZE
+    with np.load(PHOTOREAL_OUT) as z:
+        photo = {k: z[k] for k in z.files}
+    for i, (img, *_) in enumerate(render_sequence(VI_FRAMES, W, H)):
+        if not np.array_equal(img, photo["frames"][i]):
+            raise SystemExit(f"frame {i} of render_sequence({VI_FRAMES}, {W}, {H}) differs "
+                             f"from the photoreal fixture's")
+    return photo
+
+
+def main_vi(out_path: str = VI_OUT) -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    from mageslam_tpu.apps.evaluate import ate_rmse
+    from mageslam_tpu.config import FilterType
+
+    photo = vi_photo()
+    imu = vi_imu()
+    sess, arrays, calls, adopted, detections = vi_session("SIMPLE6DOF", photo, imu)
+    arrays["imu_sha256"] = imu_digest(imu)
+    arrays["imu_n"] = np.int32(len(imu))
     arrays.update(live_queries(sess, ""))
     ids, mats = sess.fossilize(global_ba_steps=None)
     arrays["fossil_ids"], arrays["fossil_mats"] = np.asarray(ids, np.int32), mats
@@ -1690,12 +1744,378 @@ def main_vi(out_path: str = VI_OUT) -> None:
           f"modes {modes.tolist()}; metric scale {sess.fuser.metric_scale} (true "
           f"{float(arrays['scale_true']):.5f}); states {arrays['ref_state'].tolist()}; "
           f"keyframes {arrays['ref_frame_id'][arrays['ref_is_kf']].tolist()}; "
-          f"{int(arrays['reloc_n'])} relocalizations; detections {rrec.detections}; "
+          f"{int(arrays['reloc_n'])} relocalizations; detections {detections}; "
           f"{len(ids)} fossilized poses, ATE {rmse:.6f} m over {n_ate}; priors on frames "
           f"{np.flatnonzero(arrays['prior_valid']).tolist()}; cov ok "
           f"{arrays['cov_ok'].tolist()}; replays "
           + "; ".join(f"{nm}: modes {arrays[f'rp_{nm}_mode'].tolist()} scale "
                       f"{arrays[f'rp_{nm}_metric_scale'][-1]}" for nm in VI_REPLAYS))
+
+
+VI_FILTERS_OUT = os.path.join(REPO, "tests", "data", "torch_port_vi_filters.npz")
+VI_FILTERS = (("f3_", "FUSER3DOF"), ("f6_", "FUSER6DOF"))
+
+
+def main_vi_filters(out_path: str = VI_FILTERS_OUT) -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPO)
+    photo = vi_photo()
+    imu = vi_imu()
+    arrays = {"imu_sha256": imu_digest(imu), "imu_n": np.int32(len(imu))}
+    lines = []
+    for prefix, name in VI_FILTERS:
+        sess, a, _, adopted, detections = vi_session(name, photo, imu)
+        a["final_metric_scale"] = np.float64(np.nan if sess.fuser.metric_scale is None
+                                             else sess.fuser.metric_scale)
+        arrays.update(_prefixed(prefix, a))
+        lines.append(f"{name}: adopted at {adopted}; modes {a['mode'].tolist()}; metric "
+                     f"scale {sess.fuser.metric_scale}; states {a['ref_state'].tolist()}; "
+                     f"keyframes {a['ref_frame_id'][a['ref_is_kf']].tolist()}; "
+                     f"{int(a['reloc_n'])} relocalizations; detections {detections}; priors "
+                     f"on frames {np.flatnonzero(a['prior_valid']).tolist()}; cov ok "
+                     f"{a['cov_ok'].tolist()}")
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes")
+    print("\n".join(lines))
+
+
+INIT_CHECKS_OUT = os.path.join(REPO, "tests", "data", "torch_port_init_checks.npz")
+SYNTHETIC_PAIRS = ("two_view", "pure_rotation", "unrelated")
+SYNTHETIC_BATCH = 64
+
+
+def main_init_checks(out_path: str = INIT_CHECKS_OUT) -> None:
+    """The JAX side of two mono-init checks of the port's tests:
+    tests/test_torch_map_init.py's synthetic pairs (`sp_draws`: the draws
+    of PRNGKey(0) at 64 hypotheses; `sp_{case}_*`: `try_initialize_pair`'s
+    result) and tests/test_torch_reloc.py's float-width check (`fw_*`: the
+    reloc scene's attempt at frame 7 solved in float64 with its recorded
+    draws widened, as that test did live)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from test_torch_map_init import synthetic_pair
+
+    from mageslam_tpu.ba import problem as jax_problem
+    from mageslam_tpu.tracking import map_init as jm
+
+    arrays = {}
+    key = jax.random.PRNGKey(0)
+    for case in SYNTHETIC_PAIRS:
+        xy1, desc1, xy2, desc2, K = synthetic_pair(case)
+        n = xy1.shape[0]
+        valid = np.ones(n, bool)
+        # one key and one size: the three cases draw the same (64, 5, n)
+        keys = jax.random.split(key, SYNTHETIC_BATCH)
+        arrays["sp_draws"] = np.asarray(
+            jax.vmap(lambda k: jax.random.gumbel(k, (5, n)))(keys), np.float32)
+        r = jm.try_initialize_pair(jnp.asarray(xy1), jnp.asarray(desc1), jnp.asarray(valid),
+                                   jnp.asarray(xy2), jnp.asarray(desc2), jnp.asarray(valid),
+                                   jnp.asarray(K), key, jm.InitSettings(),
+                                   ransac_batch=SYNTHETIC_BATCH)
+        for name in ("succeeded", "match_count", "feat2", "point_valid"):
+            arrays[f"sp_{case}_{name}"] = np.asarray(getattr(r, name))
+        arrays[f"sp_{case}_R"], arrays[f"sp_{case}_t"] = (np.asarray(r.pose2.R),
+                                                          np.asarray(r.pose2.t))
+
+    with np.load(RELOC_OUT) as z:
+        ref = {k: z[k] for k in z.files}
+    att = {int(ref[f"init_att{j}_frame"]): f"init_att{j}_"
+           for j in range(int(ref["init_n_attempt"]))}
+    p = att[7]
+    names = ("xy1", "desc1", "valid1", "xy2", "desc2", "valid2")
+    gumbel, from_problem = jax.random.gumbel, jax_problem.BAState.from_problem
+
+    def state64(problem, user_lambda=-1.0):   # the reference pins lambda to float32
+        f = problem.points.dtype
+        return jax_problem.BAState(poses=problem.poses, points=problem.points,
+                                   lam=jnp.asarray(user_lambda, f), ni=jnp.asarray(2.0, f),
+                                   obs_info=problem.obs_info)
+
+    from mageslam_tpu_torch import golden_path_settings as port_settings
+    from mageslam_tpu_torch.tracking.map_init import init_settings
+
+    settings = jm.InitSettings(*init_settings(port_settings()))   # as the test built them
+    with jax.enable_x64(True):
+        # the recorded float32 draws, widened: the same samples
+        jax.random.gumbel = lambda key, shape, dtype=None: gumbel(
+            key, shape, jnp.float32).astype(jnp.float64)
+        jax_problem.BAState.from_problem = staticmethod(state64)
+        try:
+            args = [jnp.asarray(ref[p + n].astype(np.float64) if ref[p + n].dtype == np.float32
+                                else ref[p + n]) for n in names]
+            out = jm.try_initialize_pair(
+                *args, jnp.asarray(ref["cam"].astype(np.float64)), jnp.asarray(ref[p + "key"]),
+                settings, ransac_batch=ref[p + "draws"].shape[0])
+            arrays["fw_dtype"] = np.bytes_(str(out.points.dtype))
+            arrays["fw_succeeded"] = np.asarray(out.succeeded)
+            arrays["fw_points"] = np.int32(np.asarray(out.point_valid).sum())
+        finally:
+            jax.random.gumbel = gumbel
+            jax_problem.BAState.from_problem = staticmethod(from_problem)
+    _save(out_path, arrays)
+    print(f"wrote {out_path}: {os.path.getsize(out_path)} bytes; synthetic pairs succeeded "
+          f"{[bool(arrays[f'sp_{c}_succeeded']) for c in SYNTHETIC_PAIRS]}; float64 attempt "
+          f"at frame 7: {bool(arrays['fw_succeeded'])}, {int(arrays['fw_points'])} points")
+
+
+LEVELS_OUT = os.path.join(REPO, "tests", "data", "torch_port_levels.npz")
+LEVELS_RELOC_OUT = os.path.join(REPO, "tests", "data", "torch_port_levels_reloc.npz")
+LEVELS_EVENTS = 3     # keyframes mapped in the session's window
+LEVELS = 3
+# the frontend's references: (name, image source, crop)
+LEVELS_FRONTENDS = (("bench640", "bench", None), ("bench160", "bench", (180, 300, 240, 400)),
+                    ("photo320", "photo", None))
+
+
+def levels_settings():
+    from mageslam_tpu.config import golden_path_settings
+
+    return _with_fes(golden_path_settings(), NumLevels=LEVELS, ScaleFactor=1.5)
+
+
+def octave_hist(feats, assoc) -> np.ndarray:
+    """(LEVELS,) counts of the frame's valid keypoints with a map point,
+    by octave."""
+    use = np.asarray(feats.valid) & (np.asarray(assoc) >= 0)
+    return np.bincount(np.asarray(feats.octave)[use], minlength=LEVELS).astype(np.int32)
+
+
+def levels_session(sess, feed, stop=lambda rec: False, after=lambda i: None) -> dict:
+    """Run `feed` (an iterator of (features, timestamp, frame id)) through
+    `sess` under a `SessionRecorder` until `stop(recorder)`, calling
+    `after(frame id)` after each frame: the recorder's arrays plus each
+    frame's associations (-1 where it was not tracked) and octave
+    histogram."""
+    rec = SessionRecorder(sess)
+    assoc, hist = [], []
+    try:
+        for feats, ts, fid in feed:
+            sess.process_features(feats, ts, fid)
+            r = sess.results[-1]
+            row = np.asarray(sess.history.assoc[0])
+            tracked = r.pose is not None and r.tracked_count > 0
+            assoc.append(row if tracked else np.full_like(row, -1))
+            hist.append(octave_hist(feats, assoc[-1]))
+            after(fid)
+            if stop(rec):
+                break
+    finally:
+        arrays = rec.close()
+    arrays["ref_assoc"] = np.asarray(assoc, np.int32)
+    arrays["ref_octave_hist"] = np.asarray(hist, np.int32)
+    return arrays
+
+
+def levels_frames(sess, frames):
+    """(features, timestamp, frame id) of each bench frame, as
+    `process_frame` extracts them."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.ops.frontend import detect_and_compute
+
+    for i, img in enumerate(frames):
+        fes = sess.fes if sess.initialized else sess._fes_boot
+        yield (detect_and_compute(jnp.asarray(img, jnp.float32), sess.cam16, fes, sess.N),
+               i * DT, i)
+
+
+def levels_images(bench_frame: np.ndarray) -> dict:
+    """Bench frame 31, its 160x120 crop and photoreal frame 10, float32, by
+    name (`LEVELS_FRONTENDS`)."""
+    with np.load(PHOTOREAL_OUT) as z:
+        photo = z["frames"][10]
+    out = {}
+    for name, source, crop in LEVELS_FRONTENDS:
+        img = (bench_frame if source == "bench" else photo).astype(np.float32)
+        if crop is not None:
+            img = img[crop[0]:crop[1], crop[2]:crop[3]]
+        out[name] = np.ascontiguousarray(img)
+    return out
+
+
+def levels_frontend_arrays(images: dict) -> dict:
+    """`detect_and_compute` at three levels (cam 0.82 w, centred) on each of
+    `levels_images` (`fe_{name}_*`)."""
+    import jax.numpy as jnp
+
+    from mageslam_tpu.geometry.camera import make_pinhole
+    from mageslam_tpu.ops.frontend import detect_and_compute
+
+    fes = levels_settings().MonoSettings.MonoCamera.FeatureExtractorSettings
+    arrays = {}
+    for name, img in images.items():
+        h, w = img.shape
+        cam = np.asarray([0.82 * w, 0.82 * w, w / 2.0, h / 2.0], np.float32)
+        feats = detect_and_compute(jnp.asarray(img), make_pinhole(*cam.tolist(), w, h), fes, 512)
+        arrays.update(_feature_arrays(f"fe_{name}_", feats))
+        arrays[f"fe_{name}_cam"] = cam
+    return arrays
+
+
+# features_per_level's cases: (features, levels, scale)
+LEVELS_BUDGETS = ((440, 3, 1.5), (512, 3, 1.5), (1000, 8, 1.2), (440, 1, 1.5))
+
+
+def octave_boundary_cases(scale: float = 1.5) -> tuple[np.ndarray, np.ndarray]:
+    """(distance, dmin) pairs whose ratio lies on a rounding boundary of
+    `predict_octave` (scale^(k+1)) or midway between two (scale^(k+1/2)),
+    each with the 40 float32 neighbours on either side."""
+    dist, dmin = [], []
+    for k in range(-4, 6):
+        for base in (scale ** (k + 1), scale ** (k + 0.5)):
+            for d0 in (0.3, 1.0, 2.7, 13.0):
+                c = np.float32(d0 * base)
+                for direction in (np.float32(np.inf), np.float32(0)):
+                    v = c
+                    for _ in range(41):
+                        dist.append(v)
+                        dmin.append(np.float32(d0))
+                        v = np.nextafter(v, direction)
+    return np.asarray(dist, np.float32), np.asarray(dmin, np.float32)
+
+
+def levels_reference_arrays(images: dict) -> dict:
+    """The JAX package's answers at three levels, scale 1.5, for the
+    port's exact checks, with what produced them: the pyramid's levels 1.. of
+    each of `images` (`pyr_{name}_{level}`); `predict_octave` jitted on
+    `octave_boundary_cases` (`oct_*`); `compute_dmin_dmax` jitted on those
+    distances with octaves 0, 1, 2 in turn (`dmm_*`); `features_per_level`
+    on `LEVELS_BUDGETS` (`fpl{j}`); the jax and jaxlib versions, the
+    machine and numpy's list of the CPU's features (`jax_version`,
+    `jaxlib_version`, `machine`, `cpu_features`): XLA:CPU's code, and with
+    it the last bits of the pyramid, follows the build and the ISA."""
+    import platform
+
+    import jax
+    import jax.numpy as jnp
+    import jaxlib
+    from numpy._core._multiarray_umath import __cpu_features__
+
+    from mageslam_tpu.ops import image
+    from mageslam_tpu.worldmap import map_state
+
+    arrays = {}
+    for name, img in images.items():
+        for lv, level in enumerate(image.build_pyramid(jnp.asarray(img), LEVELS, 1.5)[1:], 1):
+            arrays[f"pyr_{name}_{lv}"] = np.asarray(level)
+    dist, dmin = octave_boundary_cases()
+    arrays.update(oct_dist=dist, oct_dmin=dmin, oct_want=np.asarray(
+        jax.jit(map_state.predict_octave, static_argnums=2)(jnp.asarray(dist),
+                                                            jnp.asarray(dmin), 1.5)))
+    octave = np.arange(len(dist), dtype=np.int32) % LEVELS
+    lo, hi = jax.jit(map_state.compute_dmin_dmax, static_argnums=(2, 3))(
+        jnp.asarray(dist), jnp.asarray(octave), LEVELS, 1.5)
+    arrays.update(dmm_octave=octave, dmm_dmin=np.asarray(lo), dmm_dmax=np.asarray(hi))
+    for j, case in enumerate(LEVELS_BUDGETS):
+        arrays[f"fpl{j}_args"] = np.asarray(case, np.float64)
+        arrays[f"fpl{j}"] = np.asarray(image.features_per_level(*case), np.int32)
+    arrays.update(jax_version=np.bytes_(jax.__version__),
+                  jaxlib_version=np.bytes_(jaxlib.__version__),
+                  machine=np.bytes_(platform.machine()),
+                  cpu_features=np.bytes_(" ".join(sorted(k for k, v in __cpu_features__.items()
+                                                         if v))))
+    return arrays
+
+
+def main_levels(out_path: str = LEVELS_OUT, reloc_path: str = LEVELS_RELOC_OUT) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from test_bow_reloc import rand_desc
+    from test_pipeline import CAM as RCAM, H as RH, W as RW
+    from test_pipeline import frame_features, make_world, pose_at
+
+    from mageslam_tpu.ops.frontend import FrameFeatures
+    from mageslam_tpu.runtime import SlamSession
+
+    sess = SlamSession(levels_settings(), cam=jnp.asarray(CAM, jnp.float32),
+                       image_width=640, image_height=480)
+    frames = bench_frames(MAP_MAX_FRAME)
+    tail = []
+
+    def stop(rec):
+        if len(rec.events) >= LEVELS_EVENTS:
+            tail.append(1)
+        return len(tail) > MAP_TAIL
+
+    arrays = levels_session(sess, levels_frames(sess, frames), stop)
+    if len(arrays["ev_frame_id"]) < LEVELS_EVENTS:
+        raise SystemExit(f"only {len(arrays['ev_frame_id'])} mapping events by frame "
+                         f"{MAP_MAX_FRAME}")
+    images = levels_images(frames[31])
+    arrays.update(levels_frontend_arrays(images))
+    arrays.update(levels_reference_arrays(images))
+    _save(out_path, arrays)
+    lost = [j for j in range(int(arrays["reloc_n"])) if arrays[f"reloc{j}_where"] == b"lost"]
+    outputs = [(out_path, arrays)]
+    if not lost:
+        # tests/test_bow_reloc.py's lost-and-relocalize scene (as `main_reloc`
+        # drives it), each point at an octave of its own as
+        # tests/test_pipeline.py's three-level test gives them, with the
+        # session's snapshot after RELOC_SNAP_FRAME as the file's own keys
+        rng = np.random.RandomState(0)
+        pts, descs = make_world(rng)
+        pt_oct = np.random.RandomState(99).randint(0, LEVELS, len(pts))
+        rsess = SlamSession(levels_settings(), cam=RCAM, image_width=int(RW),
+                            image_height=int(RH))
+        n = rsess.N
+        stored: dict = {}
+
+        def with_octaves(feats, pose):
+            # frame_features packs the visible points in order
+            Xc = np.array(pose.transform(jnp.array(pts)))
+            uv = np.stack([float(RCAM[0]) * Xc[:, 0] / Xc[:, 2] + float(RCAM[2]),
+                           float(RCAM[1]) * Xc[:, 1] / Xc[:, 2] + float(RCAM[3])], 1)
+            vis = (Xc[:, 2] > 0.5) & (uv[:, 0] > 10) & (uv[:, 0] < RW - 10) \
+                & (uv[:, 1] > 10) & (uv[:, 1] < RH - 10)
+            idx = np.where(vis)[0][:n]
+            octv = np.zeros(n, np.int32)
+            octv[:len(idx)] = pt_oct[idx]
+            return feats._replace(octave=jnp.asarray(octv))
+
+        def feed():
+            for i in range(38):
+                if 30 <= i < 35:
+                    xy = jnp.array(rng.uniform(20, 300, (n, 2)), jnp.float32)
+                    feats = FrameFeatures(
+                        xy=xy, und_xy=xy, response=jnp.full((n,), 10.0),
+                        octave=jnp.asarray(rng.randint(0, LEVELS, n), jnp.int32),
+                        angle=jnp.zeros((n,), jnp.float32), desc=rand_desc(rng, n),
+                        valid=jnp.ones((n,), bool))
+                else:
+                    pose = pose_at(min(i, 29) * 0.033)
+                    feats = with_octaves(frame_features(pts, descs, pose, n, rng), pose)
+                if i > RELOC_SNAP_FRAME:
+                    stored.update(_feature_arrays(f"feat{i}_", feats))
+                yield feats, i * 0.033, i
+
+        def snapshot(fid):
+            if fid == RELOC_SNAP_FRAME:
+                stored.update(_snapshot_arrays(rsess))
+
+        rl = levels_session(rsess, feed(), after=snapshot)
+        rl = {k: v for k, v in rl.items() if k.startswith(("ref_", "reloc", "det_", "ev"))
+              or k == "map_scale"}
+        rl.update(stored)
+        rl["cam"] = np.asarray(RCAM, np.float32)
+        rl["size"] = np.asarray([RW, RH], np.int32)
+        rl["n_frames"] = np.int32(38)
+        _save(reloc_path, rl)
+        outputs.append((reloc_path, rl))
+    for path, a in outputs:
+        print(f"wrote {path}: {os.path.getsize(path)} bytes; states {a['ref_state'].tolist()}; "
+              f"keyframes {a['ref_frame_id'][a['ref_is_kf']].tolist()}; events "
+              f"{a['ev_frame_id'].tolist()}; tracked {a['ref_tracked'].tolist()}; "
+              f"relocalizations "
+              f"{[(int(a[f'reloc{j}_frame']), a[f'reloc{j}_where'].decode()) for j in range(int(a['reloc_n']))]}; "
+              f"octaves {a['ref_octave_hist'].sum(0).tolist()}; map scale {float(a['map_scale'])}")
 
 
 STREAM_OUT = os.path.join(REPO, "tests", "data", "torch_port_stream.npz")
@@ -2645,7 +3065,8 @@ def main_parallel(out_path: str = PARALLEL_OUT) -> None:
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("track", "map", "both", "init", "bow", "photoreal", "reloc", "loop",
-                     "stereo", "cameras", "vi", "stream", "diag", "ba", "parallel", "all"):
+                     "stereo", "cameras", "vi", "stream", "diag", "ba", "parallel", "levels",
+                     "vi_filters", "init_checks", "all"):
         sys.exit(__doc__)
     if which in ("track", "both", "all"):
         main()
@@ -2675,3 +3096,9 @@ if __name__ == "__main__":
         main_ba()
     if which in ("parallel", "all"):
         main_parallel()
+    if which in ("levels", "all"):
+        main_levels()
+    if which in ("vi_filters", "all"):
+        main_vi_filters()
+    if which in ("init_checks", "all"):
+        main_init_checks()
